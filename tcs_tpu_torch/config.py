@@ -1,7 +1,8 @@
-"""Model configuration of the PyTorch port.
+"""Model and training configuration of the PyTorch port.
 
 The port's own copy of the architecture fields of ``tcs_tpu.config.ModelConfig``
-(reference ``train_stereo.py:480-487``). The TPU layout knobs of the JAX
+(reference ``train_stereo.py:480-487``) and of the recipe, loss and optimiser
+fields of ``tcs_tpu.config.TrainConfig``. The TPU layout knobs of the JAX
 package (scan unrolling, packed encoders, lookup/splat backend choices, remat,
 space-to-depth stems, corr padding) change no numerics and have no meaning on
 the GPU, so they are not carried over.
@@ -62,3 +63,60 @@ class ModelConfig:
     @property
     def corr_planes(self) -> int:
         return self.corr_levels * (2 * self.corr_radius + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """One training recipe (the flag sets of the reference's three .sh scripts).
+
+    The JAX package's ``TrainConfig`` also carries the formulation of its
+    backward (differentiated frame scan, frame-parallel or frame-inline,
+    hoisted encoder and losses, remat policies, scan unrolling). Those are XLA
+    scheduling choices that its tests pin as numerically equivalent. The port
+    has one formulation, the frame-inline one: a Python loop over the frames
+    with one ``backward()`` per frame, which frees that frame's graph. So none
+    of those fields is carried over. The run name and the augmentation,
+    checkpoint and loader fields come with the trainer and the data readers.
+    """
+
+    train_dataset: str = "sceneflow"  # {'sceneflow','TartanAir','kitti_raw'}
+    lr: float = 2e-4
+    num_steps: int = 200_000
+    batch_size: int = 4  # per-process batch (reference: per-GPU batch 4)
+    image_size: Tuple[int, int] = (320, 720)  # (H, W) crop
+    frame_length: int = 2  # frames per window; carries are detached between them
+    # For the data readers (a later slice): False makes them yield single
+    # pairs. The train step takes the window it is given, whatever this says.
+    temporal: bool = True
+    train_iters: int = 5
+    wdecay: float = 1e-5
+    grad_clip: float = 1.0
+    seed: int = 1234
+    # Loss weights (reference ``train_stereo.py:364-398``)
+    loss_gamma: float = 0.9
+    normal_loss_weight: float = 0.25
+    grad_loss_weight: float = 5.0
+    init_k: int = 3
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+
+
+def sceneflow_recipe() -> TrainConfig:
+    """``sceneflow_ddp_train.sh``: 200k steps, b4, lr 2e-4, 320x720, fl 2."""
+    return TrainConfig(train_dataset="sceneflow",
+                       lr=2e-4, num_steps=200_000, batch_size=4,
+                       image_size=(320, 720), frame_length=2)
+
+
+def tartanair_recipe() -> TrainConfig:
+    """``tartanair_ddp_train.sh``: 100k steps, b4, lr 2e-4, 480x640, fl 4."""
+    return TrainConfig(train_dataset="TartanAir",
+                       lr=2e-4, num_steps=100_000, batch_size=4,
+                       image_size=(480, 640), frame_length=4)
+
+
+def kitti_raw_recipe() -> TrainConfig:
+    """``KITTI_ddp_train.sh``: 60k steps, b4, lr 1e-4, 320x1024, fl 4."""
+    return TrainConfig(train_dataset="kitti_raw", lr=1e-4,
+                       num_steps=60_000, batch_size=4, image_size=(320, 1024),
+                       frame_length=4)
+

@@ -5,6 +5,10 @@
 tree of arrays to the port's (reference-named) state dict. A Flax conv kernel
 (kh, kw, I, O) and a Flax transpose-conv kernel (kh, kw, O, I) both go back
 with axes (3, 2, 0, 1).
+
+Gradients cross the same way: a ``tcs_tpu`` gradient tree has the structure
+of its parameter tree, so ``state_dict_from_jax(grads)`` gives the gradients
+under the port's parameter names, laid out as ``p.grad`` is.
 """
 
 from __future__ import annotations

@@ -9,7 +9,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tcs_tpu_torch.ops.sampler import to_nchw, to_nhwc
 from tcs_tpu_torch.ops.splat import softsplat
 
 # 8-neighbour offsets in the reference's kernel order (v, u) relative to the
@@ -31,14 +30,24 @@ def scale_intrinsics(K: torch.Tensor, scale: float) -> torch.Tensor:
 def disp2disp_gradient_xy(disp: torch.Tensor):
     """Forward-difference (gx, gy) with replicate padding.
 
-    disp (B, H, W, 1) → grads (B, H, W, 2), edge_mask (B, H, W, 1).
+    disp (..., H, W, 1) → grads (..., H, W, 2), edge_mask (..., H, W, 1).
+    Any leading dimensions (stacked per-iteration predictions).
     """
-    H, W = disp.shape[1:3]
-    dp = to_nhwc(F.pad(to_nchw(disp), (1, 1, 1, 1), mode="replicate"))
-    center = dp[:, 1:1 + H, 1:1 + W]
-    gx = dp[:, 1:1 + H, 2:2 + W] - center
-    gy = dp[:, 2:2 + H, 1:1 + W] - center
+    H, W = disp.shape[-3:-1]
+    flat = disp.reshape(-1, 1, H, W)
+    dp = F.pad(flat, (1, 1, 1, 1), mode="replicate")
+    center = dp[:, :, 1:1 + H, 1:1 + W]
+    gx = (dp[:, :, 1:1 + H, 2:2 + W] - center).reshape(disp.shape)
+    gy = (dp[:, :, 2:2 + H, 1:1 + W] - center).reshape(disp.shape)
     return torch.cat([gx, gy], dim=-1), (gx.abs() < 5) & (gy.abs() < 5)
+
+
+def disp2disp_normal_xy(disp: torch.Tensor):
+    """Gradient → unit normal (gx, gy, −1)/‖·‖ (reference geo_utils.py:104)."""
+    grads, edge_mask = disp2disp_gradient_xy(disp)
+    normal = torch.cat([grads, -torch.ones_like(grads[..., :1])], dim=-1)
+    norm = torch.linalg.vector_norm(normal, dim=-1, keepdim=True)
+    return normal / norm.clamp(min=1e-12), edge_mask
 
 
 def disp2disp_grad_candidates(disp: torch.Tensor, level: int = 2) -> torch.Tensor:

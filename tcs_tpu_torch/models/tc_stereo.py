@@ -1,6 +1,7 @@
-"""TCStereo, test mode (port of ``tcs_tpu/models/tc_stereo.py:319-548``).
+"""TCStereo (port of ``tcs_tpu/models/tc_stereo.py:319-594``).
 
-One call is one frame of streaming temporal inference:
+One call is one frame, of streaming temporal inference in test mode or of a
+training window in train mode:
 
 1. the shared-backbone encoder on both images, batch-stacked;
 2. the fp32 cosine cost volume and its pyramid, stored in ``corr_dtype``;
@@ -10,7 +11,15 @@ One call is one frame of streaming temporal inference:
    the bilinear back-warp of the previous hidden states;
 4. ``iters`` GRU / dual-space refinement iterations, each with one radius
    lookup across the pyramid;
-5. convex upsampling of the last iteration.
+5. convex upsampling: of the last iteration in test mode, of every
+   iteration (folded into the batch) in train mode, which also returns the
+   per-iteration predictions, the upsampled initialisations and the masked
+   cost volume that the losses read.
+
+Test mode runs under ``torch.no_grad()``. In train mode every stop-gradient
+of the JAX model is a ``.detach()`` at the same place; the temporal state is
+detached where it comes in and where it goes out, so one frame's backward
+never reaches another frame.
 
 Images are NHWC in [0, 255]; :class:`TemporalState` keeps the JAX package's
 layouts. ``state.valid`` is a host-side bool, so choosing the path needs no
@@ -20,7 +29,7 @@ device synchronisation.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -90,12 +99,20 @@ class TemporalState:
 
 @dataclasses.dataclass
 class TCStereoOutput:
+    """Forward outputs. The training fields are None in test mode."""
+
     flow: torch.Tensor  # (B, H, W, 1) full-resolution flow of the last iteration, ≤ 0
     new_state: TemporalState
+    flow_predictions: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # (iters,B,H,W,1) ×2
+    flow_q_predictions: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # (iters,B,h,w,1) ×2
+    disp_grad_q_predictions: Optional[torch.Tensor] = None  # (iters,B,h,w,2)
+    flow_init: Optional[torch.Tensor] = None  # (B,H,W,1) upsampled −disp_init
+    flow_mono: Optional[torch.Tensor] = None  # (B,H,W,1) upsampled −disp_mono
+    cost_volume: Optional[torch.Tensor] = None  # (B,h,w,W2) masked
 
 
 class TCStereo(nn.Module):
-    """Iterative temporally-consistent stereo network (test mode).
+    """Iterative temporally-consistent stereo network.
 
     Module names follow the reference torch model, so ``state_dict()`` feeds
     ``tools/convert_torch_ckpt.convert_state_dict`` and reference checkpoints
@@ -140,18 +157,31 @@ class TCStereo(nn.Module):
                 if m.bias is not None:
                     m.bias.uniform_(-bound, bound, generator=g)
 
-    @torch.no_grad()
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 state: TemporalState, cam: CameraParams, T: torch.Tensor,
                 iters: int = 5, test_mode: bool = True) -> TCStereoOutput:
-        """One frame. image1/2 (B,H,W,3) in [0,255]; T (B,4,4) world→cam pose."""
-        if not test_mode:
-            raise NotImplementedError("train mode is not ported yet")
+        """One frame. image1/2 (B,H,W,3) in [0,255]; T (B,4,4) world→cam pose.
+
+        ``test_mode=True`` builds no autograd graph and returns the final flow
+        and the new state only; ``test_mode=False`` also returns the
+        per-iteration training outputs and is differentiable.
+        """
         if iters < 1:
             raise ValueError(f"iters={iters}: at least one refinement iteration")
+        if test_mode:
+            with torch.no_grad():
+                return self._frame(image1, image2, state, cam, T, iters, True)
+        return self._frame(image1, image2, state, cam, T, iters, False)
+
+    def _frame(self, image1, image2, state, cam, T, iters, test_mode):
         cfg, dt = self.cfg, self.dtype
-        B = image1.shape[0]
+        B, H, W, _ = image1.shape
         f = cfg.downsample_factor
+        # The carry is gradient-free where it is produced (new_state below)
+        # and, as in the JAX model, where it is consumed.
+        state = dataclasses.replace(
+            state, disp_q=state.disp_q.detach(), fmap1=state.fmap1.detach(),
+            net_list=tuple(n.detach() for n in state.net_list))
 
         # --- context + matching features, batch-stacked ---
         img = _c(2.0 * (torch.cat([image1, image2], dim=0) / 255.0) - 1.0)
@@ -164,6 +194,9 @@ class TCStereo(nn.Module):
         corr_dt = getattr(torch, cfg.corr_dtype)
         pyramid = tuple(lvl.to(corr_dt).contiguous()
                         for lvl in corr_ops.corr_pyramid(raw_cv, cfg.corr_levels))
+        cost_volume = None
+        if not (test_mode and state.valid):
+            cost_volume = corr_ops.masked_cost_volume(raw_cv)
 
         # --- temporal initialisation ---
         K_scale = geometry.scale_intrinsics(cam.K, cfg.scale_rate)
@@ -172,12 +205,12 @@ class TCStereo(nn.Module):
             rel = geometry.cal_relative_transformation(state.T_prev, T)
             sparse_disp, warped_fmap1, sparse_mask = geometry.warp(
                 state.disp_q, state.fmap1, rel, K_scale, K_scale_inv, cam.baseline)
-            cost = torch.sum(corr_ops.l2_normalize(fmap1)
+            cost = torch.sum(corr_ops.l2_normalize(fmap1.detach())
                              * corr_ops.l2_normalize(warped_fmap1),
                              dim=-1, keepdim=True) * sparse_mask
         else:
             sparse_disp, cost, sparse_mask = corr_ops.argmax_disp(
-                corr_ops.masked_cost_volume(raw_cv), margin=cfg.argmax_margin,
+                cost_volume, margin=cfg.argmax_margin,
                 suppress_radius=cfg.argmax_suppress_radius)
 
         # --- context projections ---
@@ -187,14 +220,15 @@ class TCStereo(nn.Module):
                          for conv, x in zip(self.context_zqr_convs, inp_raw))
         net_raw = [x[0] for x in cnet_list]
 
-        # --- disparity completion ---
-        disp_init, _, _, net_list = self.disp_completor(
-            sparse_disp, cost, sparse_mask, net_raw)
+        # --- disparity completion (the cost is an input, not a path for
+        # gradients: the init loss trains the cost volume) ---
+        disp_init, disp_mono, _, net_list = self.disp_completor(
+            sparse_disp, cost.detach(), sparse_mask, net_raw)
 
         # --- hidden-state temporal warp ---
         if state.valid:
             grid = geometry.get_backward_grid(
-                disp_init, geometry.cal_relative_transformation(T, state.T_prev),
+                disp_init.detach(), geometry.cal_relative_transformation(T, state.T_prev),
                 K_scale, K_scale_inv, cam.baseline)
             warped = []
             for net in state.net_list:
@@ -212,26 +246,60 @@ class TCStereo(nn.Module):
         disp = disp_init
         h, w = disp.shape[1:3]
         xs = torch.arange(w, dtype=torch.float32, device=disp.device)
+        disp_q_seq, refined_seq, grads_seq, fused_seq = [], [], [], []
         for _ in range(iters):
+            disp = disp.detach()
             coords_x = (xs - disp[..., 0]).contiguous()
             corr = corr_ops.lookup(pyramid, coords_x, cfg.corr_radius)
             net_list, delta_flow = self.update_block(net_list, inp_list, _c(corr),
                                                      _c(-disp), dt)
             disp_q = disp - _h(delta_flow)
-            disp_grad_raw, _ = geometry.disp2disp_gradient_xy(disp_q)
+            disp_grad_raw, _ = geometry.disp2disp_gradient_xy(disp_q.detach())
             disp_grad, grad_ctx = self.disp_grad_refine(disp_grad_raw, disp_q, grad_list)
             refined, fused = self.disp_refine(disp_grad, disp_q, net_list[0], grad_ctx)
-            net_list = (self.hiddenstate_update(net_list[0], refined - disp_q),
+            net_list = (self.hiddenstate_update(net_list[0], (refined - disp_q).detach()),
                         ) + tuple(net_list[1:])
             disp = refined
+            if not test_mode:
+                disp_q_seq.append(disp_q)
+                refined_seq.append(refined)
+                grads_seq.append(disp_grad)
+                fused_seq.append(fused)
 
-        up_mask = self.disp_refine.mask(fused)
-        flow = _h(convex_upsample_nchw(_c(-disp), up_mask, f)).clamp(max=0.0)
         new_state = TemporalState(
-            disp_q=disp.clamp(min=0.0),
-            net_list=tuple(_h(n).float().contiguous() for n in net_list),
-            fmap1=fmap1,
+            disp_q=disp.detach().clamp(min=0.0),
+            net_list=tuple(_h(n.detach()).float().contiguous() for n in net_list),
+            fmap1=fmap1.detach(),
             T_prev=T,
             valid=True,
         )
-        return TCStereoOutput(flow=flow, new_state=new_state)
+        if test_mode:
+            # Mask head and convex upsampling on the last iteration only.
+            up_mask = self.disp_refine.mask(fused)
+            flow = _h(convex_upsample_nchw(_c(-disp), up_mask, f)).clamp(max=0.0)
+            return TCStereoOutput(flow=flow, new_state=new_state)
+
+        # Train: the iteration axis folds into the batch, so the mask head and
+        # the upsampling run once over all iterations (per-pixel operations,
+        # so the numbers are those of a per-iteration application).
+        disp_q_seq, refined_seq = torch.stack(disp_q_seq), torch.stack(refined_seq)
+
+        def fold(x):  # (iters, B, h, w, 1) → (iters·B, 1, h, w)
+            return _c(x.reshape(iters * B, h, w, 1))
+
+        def unfold(x):  # (iters·B, 1, H, W) → (iters, B, H, W, 1)
+            return _h(x).reshape(iters, B, H, W, 1)
+
+        up_mask = self.disp_refine.mask(torch.cat(fused_seq, dim=0))
+        flows_up = unfold(convex_upsample_nchw(fold(-disp_q_seq), up_mask.detach(), f))
+        flow_refine_up = unfold(convex_upsample_nchw(fold(-refined_seq), up_mask, f))
+        return TCStereoOutput(
+            flow=flow_refine_up[-1].clamp(max=0.0),
+            new_state=new_state,
+            flow_predictions=(flows_up, flow_refine_up),
+            flow_q_predictions=(-disp_q_seq, -refined_seq),
+            disp_grad_q_predictions=torch.stack(grads_seq),
+            flow_init=-float(f) * resize_bilinear(disp_init, (H, W)),
+            flow_mono=-float(f) * resize_bilinear(disp_mono, (H, W)),
+            cost_volume=cost_volume,
+        )

@@ -170,8 +170,12 @@ class DispGradPredictor(nn.Module):
 
     def forward(self, disp_grad, disp, clist):
         """disp_grad (B,h,w,2), disp (B,h,w,1) NHWC fp32; clist NCHW.
-        Returns (refined gradient (B,h,w,2) fp32, context NCHW)."""
-        disp_grad = 5.0 * disp_grad
+        Returns (refined gradient (B,h,w,2) fp32, context NCHW).
+
+        Both inputs are constants for autograd, as in the JAX model: the
+        gradient loss trains this module through its residual only."""
+        disp_grad = 5.0 * disp_grad.detach()
+        disp = disp.detach()
         B, H, W, _ = disp.shape
         # Reference channel order: component slowest, then the 16 directions.
         cands = disp2disp_grad_candidates(disp, level=2).permute(0, 4, 3, 1, 2)
@@ -205,7 +209,8 @@ def propagate_disparity(disp_grad: torch.Tensor, disp: torch.Tensor):
     disp_grad (B,H,W,2), disp (B,H,W,1), fp32 NHWC → (candidates (B,H,W,9),
     |gradient differences| (B,H,W,18): all gx diffs, then all gy diffs).
     Candidate k = 3v+u is d_n + gx_n·(1−u) + gy_n·(1−v); the disparity is
-    edge-padded and the gradients zero-padded.
+    edge-padded and the gradients zero-padded. The gradient differences are
+    gradient-free, as in the JAX model.
     """
     B, H, W, _ = disp.shape
     gpad = F.pad(disp_grad, (0, 0, 1, 1, 1, 1))
@@ -219,7 +224,7 @@ def propagate_disparity(disp_grad: torch.Tensor, disp: torch.Tensor):
             cands.append(d_n + gx_n * (1.0 - u) + gy_n * (1.0 - v))
             gdx.append((disp_grad[..., 0] - gx_n).abs())
             gdy.append((disp_grad[..., 1] - gy_n).abs())
-    return torch.stack(cands, dim=-1), torch.stack(gdx + gdy, dim=-1)
+    return torch.stack(cands, dim=-1), torch.stack(gdx + gdy, dim=-1).detach()
 
 
 class DispRefine(nn.Module):
@@ -237,10 +242,16 @@ class DispRefine(nn.Module):
 
     def forward(self, disp_grads, disp, context_disp, context_grad):
         """disp_grads (B,h,w,2), disp (B,h,w,1) NHWC fp32; contexts NCHW.
-        Returns (refined disparity (B,h,w,1) fp32, fused features NCHW)."""
+        Returns (refined disparity (B,h,w,1) fp32, fused features NCHW).
+
+        As in the JAX model the incoming disparity is a constant for autograd
+        and the candidates feed the stem detached, so the refined disparity
+        reaches the gradients through the candidates' planes and the softmax
+        weights only."""
         context = self.context_compress(torch.cat([context_disp, context_grad], dim=1))
-        candidates, matrix = propagate_disparity(disp_grads.float(), disp.float())
-        disp_f = self.disp_f_stem(_c(torch.cat([candidates, matrix], dim=-1)))
+        candidates, matrix = propagate_disparity(disp_grads.float(),
+                                                 disp.detach().float())
+        disp_f = self.disp_f_stem(_c(torch.cat([candidates.detach(), matrix], dim=-1)))
         fused = self.conv_fuse(torch.cat([disp_f, context], dim=1))
         w = torch.softmax(_h(self.w_head(fused)).float(), dim=-1)
         return torch.sum(w * candidates, dim=-1, keepdim=True), fused

@@ -25,11 +25,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-SOURCES = ("corr_lookup.cu", "softsplat.cu")
+SOURCES = ("corr_lookup.cu", "corr_lookup_bwd.cu", "softsplat.cu",
+           "softsplat_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launches = {"corr_lookup": 0, "splat_sum": 0}
+launches = {"corr_lookup": 0, "corr_lookup_bwd": 0, "splat_sum": 0,
+            "splat_sum_bwd": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -95,8 +97,13 @@ def _declare(lib) -> None:
     lib.tcs_corr_lookup.argtypes = [ctypes.POINTER(vp), i32, i32, vp, vp, i32,
                                     i32, i32, vp]
     lib.tcs_corr_lookup.restype = i32
+    lib.tcs_corr_lookup_bwd.argtypes = [ctypes.POINTER(vp), i32, i32, vp, vp,
+                                        i32, i32, i32, vp]
+    lib.tcs_corr_lookup_bwd.restype = i32
     lib.tcs_splat_sum.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.tcs_splat_sum.restype = i32
+    lib.tcs_splat_sum_bwd.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.tcs_splat_sum_bwd.restype = i32
 
 
 def lib():

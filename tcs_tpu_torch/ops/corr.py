@@ -7,7 +7,11 @@ lookup window of a pixel is one short contiguous read.
 
 ``lookup`` launches the hand-written ``csrc/corr_lookup.cu`` kernel on a CUDA
 tensor and runs :func:`lookup_plain` on a CPU tensor. Both lerp in fp32 on
-pyramids stored in fp32 or bf16, as ``lookup_pallas`` does.
+pyramids stored in fp32 or bf16, as ``lookup_pallas`` does. It is a
+``torch.autograd.Function``: its backward, the transpose of the lookup with
+respect to the pyramid, launches ``csrc/corr_lookup_bwd.cu`` on a CUDA tensor
+and runs :func:`lookup_bwd_plain` on a CPU tensor. The coordinates get no
+gradient, the contract of ``lookup_onehot_w2major_vjp`` in the JAX package.
 """
 
 from __future__ import annotations
@@ -104,11 +108,42 @@ def lookup_plain(pyramid: Sequence[torch.Tensor], coords_x: torch.Tensor,
     return torch.cat(outs, dim=-1)
 
 
-def lookup(pyramid: Sequence[torch.Tensor], coords_x: torch.Tensor,
-           radius: int) -> torch.Tensor:
-    """:func:`lookup_plain`'s contract; the CUDA kernel on CUDA tensors."""
-    if coords_x.device.type == "cpu" and all(p.device.type == "cpu" for p in pyramid):
-        return lookup_plain(pyramid, coords_x, radius)
+def lookup_bwd_plain(g: torch.Tensor, coords_x: torch.Tensor, radius: int,
+                     widths: Sequence[int], dtype: torch.dtype
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Transpose of :func:`lookup_plain` with respect to the pyramid
+    (semantics of ``lookup_onehot_w2major_vjp``'s backward).
+
+    Level i gets ``d[…, floor(c)+k] = (1−frac)·g_k + frac·g_{k−1}``,
+    k ∈ [−r, r+1], with g_k the level's 2r+1 cotangents (zero outside them),
+    and zero in every other cell; cells outside [0, W2ᵢ−1] are dropped. The
+    arithmetic is fp32 with one rounding into ``dtype``.
+
+    g: (B,H,W1, L·(2r+1)) fp32; coords_x: (B,H,W1) fp32; widths: W2ᵢ per
+    level → per level (B,H,W1,W2ᵢ) of ``dtype``.
+    """
+    nt = 2 * radius + 1
+    k = torch.arange(-radius, radius + 2, device=g.device, dtype=torch.float32)
+    outs = []
+    for i, W2 in enumerate(widths):
+        gl = torch.nn.functional.pad(g[..., i * nt:(i + 1) * nt].float(), (1, 1))
+        c = coords_x.float() / (2 ** i)
+        base = torch.floor(c)
+        frac = (c - base)[..., None]
+        taps = (1.0 - frac) * gl[..., 1:] + frac * gl[..., :-1]  # (B,H,W1,2r+2)
+        # Range test in float, as the kernel makes it: a far-out or non-finite
+        # coordinate selects no cell.
+        idx = base[..., None] + k
+        valid = (idx >= 0) & (idx <= W2 - 1)
+        idx = torch.where(valid, idx, torch.zeros_like(idx)).long()
+        d = torch.zeros(*coords_x.shape, W2, dtype=taps.dtype, device=g.device)
+        # The valid cells of a row are distinct, and the rest add zero.
+        d.scatter_add_(-1, idx, torch.where(valid, taps, torch.zeros_like(taps)))
+        outs.append(d.to(dtype))
+    return tuple(outs)
+
+
+def _check_lookup_args(pyramid, coords_x, radius):
     dev = coords_x.device
     L = len(pyramid)
     if dev.type != "cuda" or any(p.device != dev for p in pyramid):
@@ -131,6 +166,14 @@ def lookup(pyramid: Sequence[torch.Tensor], coords_x: torch.Tensor,
             raise ValueError(f"level {i} is not contiguous")
     if not coords_x.is_contiguous():
         raise ValueError("coords_x is not contiguous")
+
+
+def _launch_lookup(pyramid, coords_x, radius):
+    """One launch of ``csrc/corr_lookup.cu``. The tensors carry no autograd
+    history here: :class:`_Lookup` is the only caller."""
+    _check_lookup_args(pyramid, coords_x, radius)
+    dev, dt, L = coords_x.device, pyramid[0].dtype, len(pyramid)
+    B, H, W1, W2 = pyramid[0].shape
     out = torch.empty(B, H, W1, L * (2 * radius + 1), dtype=torch.float32,
                       device=dev)
     ptrs = (ctypes.c_void_p * L)(*[p.data_ptr() for p in pyramid])
@@ -142,3 +185,60 @@ def lookup(pyramid: Sequence[torch.Tensor], coords_x: torch.Tensor,
     _kernels.check(err, "corr_lookup")
     _kernels.launches["corr_lookup"] += 1
     return out
+
+
+def _launch_lookup_bwd(g, coords_x, radius, widths, dtype):
+    """One launch of ``csrc/corr_lookup_bwd.cu``: every level's gradient."""
+    dev, L = coords_x.device, len(widths)
+    B, H, W1 = coords_x.shape
+    if g.device != dev or g.dtype != torch.float32 \
+            or g.shape != (B, H, W1, L * (2 * radius + 1)):
+        raise ValueError(f"lookup backward: cotangent {g.dtype} {tuple(g.shape)} "
+                         f"on {g.device}")
+    g = g.contiguous()
+    douts = tuple(torch.empty(B, H, W1, w, dtype=dtype, device=dev) for w in widths)
+    ptrs = (ctypes.c_void_p * L)(*[d.data_ptr() for d in douts])
+    lib = _kernels.lib()
+    with torch.cuda.device(dev):
+        err = lib.tcs_corr_lookup_bwd(ptrs, L, widths[0], coords_x.data_ptr(),
+                                      g.data_ptr(), B * H * W1, radius,
+                                      int(dtype == torch.bfloat16),
+                                      torch.cuda.current_stream().cuda_stream)
+    _kernels.check(err, "corr_lookup_bwd")
+    _kernels.launches["corr_lookup_bwd"] += 1
+    return douts
+
+
+class _Lookup(torch.autograd.Function):
+    """The lookup and its hand-written backward. Linear in the pyramid, so
+    the backward needs the coordinates only and saves no level."""
+
+    @staticmethod
+    def forward(ctx, coords_x, radius, *pyramid):
+        on_cpu = coords_x.device.type == "cpu" and all(
+            p.device.type == "cpu" for p in pyramid)
+        ctx.save_for_backward(coords_x)
+        ctx.radius = radius
+        ctx.widths = tuple(p.shape[-1] for p in pyramid)
+        ctx.dtype = pyramid[0].dtype
+        ctx.on_cpu = on_cpu
+        if on_cpu:
+            return lookup_plain(pyramid, coords_x, radius)
+        return _launch_lookup(pyramid, coords_x, radius)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (coords_x,) = ctx.saved_tensors
+        fn = lookup_bwd_plain if ctx.on_cpu else _launch_lookup_bwd
+        return (None, None, *fn(g, coords_x, ctx.radius, ctx.widths, ctx.dtype))
+
+
+def lookup(pyramid: Sequence[torch.Tensor], coords_x: torch.Tensor,
+           radius: int) -> torch.Tensor:
+    """:func:`lookup_plain`'s contract; the CUDA kernels on CUDA tensors.
+
+    Differentiable with respect to the pyramid; the coordinates are treated
+    as constants and get no gradient.
+    """
+    return _Lookup.apply(coords_x.detach(), radius, *pyramid)

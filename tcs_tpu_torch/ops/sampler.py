@@ -12,6 +12,7 @@ Semantics (as in the JAX package and the reference):
 - ``resize_bilinear`` matches ``F.interpolate(mode='bilinear', align_corners=True)``.
 - ``resize_nearest`` takes source index ``floor(dst * in / out)``.
 - ``pool2x`` is ``avg_pool2d(3, stride 2, padding 1, count_include_pad)``.
+- ``median_pool`` takes the lower median, as ``torch.median`` does.
 """
 
 from __future__ import annotations
@@ -113,12 +114,36 @@ def resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
 
 
 def pool2x_nchw(x: torch.Tensor) -> torch.Tensor:
-    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    """avg_pool2d(3, stride 2, padding 1) of (B, C, H, W).
+
+    The input is made NCHW-contiguous first. The hidden states reach this
+    function as NCHW views of channel-last memory, and on that layout the
+    CUDA backward of a padded ``avg_pool2d`` returned gradients that were off
+    by 0.9 of their largest entry (torch 2.11.0+cu128; the forward, the CPU
+    and the contiguous layout are right).
+    """
+    return F.avg_pool2d(x.contiguous(), 3, stride=2, padding=1, count_include_pad=True)
 
 
 def pool2x(x: torch.Tensor) -> torch.Tensor:
     """``core/update.py:114``: avg_pool2d(x, 3, stride=2, padding=1) on NHWC."""
     return to_nhwc(pool2x_nchw(to_nchw(x)))
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.Tensor:
+    """``F.max_pool2d`` on NHWC (padding counts as −inf)."""
+    return to_nhwc(F.max_pool2d(to_nchw(x), window, stride, padding))
+
+
+def median_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Non-overlapping k×k lower-median pooling of (B, H, W, C): the element
+    at sorted index (k·k − 1)//2 of each window, which is what
+    ``torch.median`` returns (reference ``core/utils/utils.py:121``)."""
+    B, H, W, C = x.shape
+    if H % k or W % k:
+        raise ValueError(f"median_pool: {H}x{W} is not a multiple of {k}")
+    win = x.reshape(B, H // k, k, W // k, k, C).permute(0, 1, 3, 5, 2, 4)
+    return win.reshape(B, H // k, W // k, C, k * k).median(dim=-1).values
 
 
 def convex_upsample_nchw(field: torch.Tensor, mask_logits: torch.Tensor,

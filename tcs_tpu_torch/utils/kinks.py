@@ -1,0 +1,52 @@
+"""Pin the ReLU kinks of a run, to compare the gradients of two runs.
+
+A ReLU or leaky ReLU unit whose pre-activation is within rounding of zero
+falls on one side of its kink in one run and on the other in the next
+(another device, another library, another summation order). The forward
+values hardly notice, but the unit passes its whole upstream gradient in one
+run and none (or a hundredth) in the other. Among the millions of units of a
+small model a few dozen do so between any two fp32 runs, and a leaf whose
+gradient sums over few pixels then differs by percents of its largest entry
+(``scripts/torch_grad_parity_seeds.py`` counts them). With every unit put on
+the side the other run took, what is left is the rounding of the arithmetic,
+and a gradient check can be held to a tight bound.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+class Kinks:
+    """Context manager that stands in for ``F.relu`` and ``F.leaky_relu``.
+
+    It records on which side of its kink every unit falls, call by call
+    (``sides``, boolean CPU tensors), and, given another run's record as
+    ``replay``, puts every unit on the side that run took. Values and
+    gradients without ``replay`` are those of the functions it stands in for.
+    """
+
+    def __init__(self, replay=None):
+        self.sides, self.replay = [], replay
+
+    def _apply(self, x, slope):
+        side = x > 0
+        self.sides.append(side.cpu())
+        if self.replay is not None:
+            side = self.replay[len(self.sides) - 1].to(x.device)
+        return x * torch.where(side, 1.0, slope).to(x.dtype)
+
+    def __enter__(self):
+        self._saved = F.relu, F.leaky_relu
+        F.relu = lambda x, inplace=False: self._apply(x, 0.0)
+        F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: self._apply(
+            x, negative_slope)
+        return self
+
+    def __exit__(self, *exc):
+        F.relu, F.leaky_relu = self._saved
+
+    def crossed(self, other) -> int:
+        """Units that fall on another side than in ``other``, a ``sides`` record."""
+        return sum(int((a != b).sum()) for a, b in zip(self.sides, other))

@@ -58,6 +58,35 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         _kernels.lib()
 
 
+def test_raw_kernel_launches_are_reached_only_through_the_autograd_functions():
+    """A ctypes launch returns a tensor without history, so nothing but the
+    ``torch.autograd.Function`` of its own module may call a ``_launch_*``."""
+    owners = {"_launch_lookup": "corr.py", "_launch_lookup_bwd": "corr.py",
+              "_launch_splat_sum": "splat.py", "_launch_splat_sum_bwd": "splat.py"}
+    for path in (ROOT / "tcs_tpu_torch").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            name = getattr(node, "attr", None) or getattr(node, "id", None)
+            if name in owners and not isinstance(node, ast.FunctionDef):
+                assert path.name == owners[name], (path, name)
+    for mod, cls in (("corr.py", "_Lookup"), ("splat.py", "_SplatSum")):
+        tree = ast.parse((ROOT / "tcs_tpu_torch" / "ops" / mod).read_text())
+        inside = {id(n) for c in ast.walk(tree)
+                  if isinstance(c, ast.ClassDef) and c.name == cls for n in ast.walk(c)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Name) and node.id in owners:
+                assert id(node) in inside, (mod, node.id, node.lineno)
+
+
+def test_train_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the entry points run on it")
+    from tcs_tpu_torch.train import SequenceBatch
+
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda|gpu"):
+        SequenceBatch.from_numpy([{k: [0.0] for k in ("image1", "image2", "flow", "valid",
+                                                       "T", "K", "baseline")}], "cuda")
+
+
 def test_config_rejects_unported_variants():
     from tcs_tpu_torch import ModelConfig
 

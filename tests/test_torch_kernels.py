@@ -74,6 +74,56 @@ def test_splat_kernel(cuda_device):
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+@pytest.mark.parametrize("dtype,radius", [(torch.float32, 4), (torch.bfloat16, 4),
+                                          (torch.float32, 2)])
+def test_lookup_backward_kernel(cuda_device, dtype, radius):
+    """Through the autograd function: bit for bit the plain backward (the
+    same fp32 products and sum, one rounding into bf16)."""
+    g = torch.Generator().manual_seed(1)
+    B, H, W = 2, 6, 45  # odd width: levels 45, 22, 11, 5
+    pyr = [p.requires_grad_() for p in _pyramid(g, B, H, W, dtype, cuda_device)]
+    coords = (torch.rand(B, H, W, generator=g) * (W + 20) - 10).to(cuda_device)
+    coords[0, 0, :5] = torch.arange(5.0)
+    coords[1, 0, :3] = torch.tensor([float("nan"), float("inf"), -1e20])
+    cot = torch.randn(B, H, W, 4 * (2 * radius + 1), generator=g).to(cuda_device)
+    before = dict(_kernels.launches)
+    out = corr.lookup(pyr, coords.clone().requires_grad_(), radius)
+    grads = torch.autograd.grad(out, pyr, cot)
+    torch.cuda.synchronize()
+    assert _kernels.launches["corr_lookup"] == before["corr_lookup"] + 1
+    assert _kernels.launches["corr_lookup_bwd"] == before["corr_lookup_bwd"] + 1
+    refs = corr.lookup_bwd_plain(cot, coords, radius, [p.shape[-1] for p in pyr], dtype)
+    for a, b in zip(grads, refs):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+        assert not a[1, 0, :3].any()
+
+
+def test_splat_backward_kernel(cuda_device):
+    rng = np.random.default_rng(2)
+    B, H, W, C = 2, 12, 20, 258
+    values = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(np.float32))
+    flow = rng.normal(scale=3.0, size=(B, H, W, 2)).astype(np.float32)
+    flow[0, :, :3, 0] = -40.0
+    flow[0, 5, 5] = [2.0, -1.0]
+    flow[1, 2, 5, 0] = np.nan
+    flow[1, 3, 7, 1] = np.inf
+    cot = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(np.float32)).to(cuda_device)
+    values = values.to(cuda_device).requires_grad_()
+    flow = torch.from_numpy(flow).to(cuda_device).requires_grad_()
+    before = _kernels.launches["splat_sum_bwd"]
+    dv, df = torch.autograd.grad(splat.splat_sum(values, flow), (values, flow), cot)
+    torch.cuda.synchronize()
+    assert _kernels.launches["splat_sum_bwd"] == before + 1
+    rdv, rdf = splat.splat_sum_bwd_plain(cot, values.detach(), flow.detach())
+    assert torch.isfinite(dv).all() and torch.isfinite(df).all()
+    assert not df[1, 2, 5].any() and not dv[1, 3, 7].any()
+    # dvalues: the same products in the same order; dflow: a warp sums the
+    # channels' dot products in another order than torch.sum.
+    assert (dv - rdv).abs().max().item() <= 1e-6 * rdv.abs().max().item()
+    assert (df - rdf).abs().max().item() <= 1e-4 * rdf.abs().max().item()
+
+
 def test_model_on_card_matches_cpu(cuda_device):
     """Three frames of the fp32 model at 64×96, kernels vs plain versions."""
     from tcs_tpu_torch import ModelConfig
@@ -101,3 +151,17 @@ def test_model_on_card_matches_cpu(cuda_device):
     torch.backends.cudnn.allow_tf32 = True
     for a, b in zip(flows["cuda"], flows["cpu"]):
         assert (a - b).abs().max().item() <= 5e-2
+
+
+def test_pool2x_backward_on_a_channel_last_hidden_state(cuda_device):
+    """The layout the GRUs pool: an NCHW view of channel-last memory."""
+    from tcs_tpu_torch.ops import sampler
+
+    g = torch.Generator().manual_seed(9)
+    hidden = torch.randn(2, 16, 24, 128, generator=g)
+    cot = torch.randn(2, 128, 8, 12, generator=g)
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        x = hidden.to(dev).permute(0, 3, 1, 2).requires_grad_()
+        grads.append(torch.autograd.grad(sampler.pool2x_nchw(x), x, cot.to(dev))[0].cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)

@@ -205,7 +205,10 @@ def test_cpu_wrappers_run_plain_and_count_nothing(rng):
     pyr = tuple(torch.from_numpy(np.array(p)) for p in _pyramid(rng, 16))
     coords = torch.from_numpy(rng.uniform(0, 16, size=(2, 4, 16)).astype(np.float32))
     assert torch.equal(tcorr.lookup(pyr, coords, 4), tcorr.lookup_plain(pyr, coords, 4))
-    v = torch.randn(1, 4, 5, 3)
+    v = torch.randn(1, 4, 5, 3, requires_grad=True)
     f = torch.randn(1, 4, 5, 2)
-    assert torch.equal(tsplat.splat_sum(v, f), tsplat.splat_sum_plain(v, f))
-    assert _kernels.launches == {"corr_lookup": 0, "splat_sum": 0}
+    out = tsplat.splat_sum(v, f)
+    assert torch.equal(out, tsplat.splat_sum_plain(v, f))
+    out.sum().backward()  # the backward runs its plain version too
+    assert _kernels.launches == {"corr_lookup": 0, "corr_lookup_bwd": 0,
+                                 "splat_sum": 0, "splat_sum_bwd": 0}
