@@ -6,10 +6,12 @@ Phases, in order; any failure exits non-zero:
 1. device: the card's name and power limit, torch/CUDA versions, and the
    build of the hand-written kernels from ``tcs_tpu_torch/csrc``;
 2. kernel checks: each kernel against its plain PyTorch version on the card,
-   with times (CUDA events) and bounds: the two forward kernels at the
-   inference path's shapes (batch 1, 96×320 grid) and at the training path's
-   (batch 4, 80×180 grid), the two backward kernels at the training path's,
-   each for fp32 and bf16 pyramids;
+   with times (CUDA events; the L2 warm, and cold after a 128 MB write), the
+   card's launch floor, bounds and library yardsticks: both lookup kernels at
+   the inference path's shapes (batch 1, 96×320 grid) and at the training
+   path's (batch 4, 80×180 grid) for fp32 and bf16 pyramids, with non-finite
+   and far-out coordinates; the splat at both shapes, its backward at the
+   training path's;
 3. small-model parity: the fp32 config at 64×96 for 3 frames, on the card
    with the kernels and on the CPU with the plain versions, same weights;
 4. main path: ``TemporalEvaluator`` over the default config (bf16 conv
@@ -37,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -100,29 +103,85 @@ def tf32_off():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` in ms over ``reps`` back-to-back calls.
-
-    The calls are queued behind a device-side sleep that outlasts their host
-    work, so the CUDA events time the device, not the Python wrapper. A
-    function that synchronises inside (boolean-mask indexing) cannot queue
-    ahead, and its time includes its host work.
-    """
-    for _ in range(warmup):
-        fn()
+def _behind_sleep(enqueue) -> bool:
+    """Run ``enqueue``, which queues work on the device, behind a device-side
+    sleep that outlasts its host work, so that the device runs the queued
+    work back to back and CUDA events inside it time the device, not the
+    Python wrappers. A dry run gives the host time; the sleep is lengthened
+    until it was still running when ``enqueue`` returned. Returns whether it
+    was: a function that synchronises inside (boolean-mask indexing) cannot
+    queue ahead, and then its times include its host work."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    enqueue()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((2 * reps * host_s + 1e-3) * 2e9))  # cycles at ~2 GHz
-    start.record()
-    for _ in range(reps):
+    for attempt in range(3):
+        asleep = torch.cuda.Event()
+        torch.cuda._sleep(int((2 * host_s * 4 ** attempt + 1e-3) * 2e9))  # cycles at ~2 GHz
+        asleep.record()
+        enqueue()
+        ahead = not asleep.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return True
+    return False
+
+
+def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn`` in ms over ``reps`` back-to-back calls, the
+    L2 warm: the inputs stay in the 50 MB L2 from one call to the next. The
+    calls are queued ahead of the device (:func:`_behind_sleep`)."""
+    for _ in range(warmup):
         fn()
-    stop.record()
-    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def enqueue():
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+
+    if not _behind_sleep(enqueue):
+        print("  (the device waited on the host: this time includes host work)")
     return start.elapsed_time(stop) / reps
+
+
+COLD_FLUSH_BYTES = 128 * 2**20  # written before each cold call: 2.5x the L2
+
+
+def cuda_cold_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median device time of one call of ``fn`` in ms with the L2 cold, as the
+    model leaves it between two lookups: before each call a 128 MB buffer is
+    written, and one pair of CUDA events brackets the call alone. The calls
+    are queued ahead of the device (:func:`_behind_sleep`)."""
+    flush = torch.empty(COLD_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        flush.zero_()
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+
+    def enqueue():
+        for start, stop in events:
+            flush.zero_()
+            start.record()
+            fn()
+            stop.record()
+
+    if not _behind_sleep(enqueue):
+        print("  (the device waited on the host: this time includes host work)")
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def launch_floor() -> dict:
+    """The card's cost of one launch: an empty kernel (``torch.cuda._sleep(0)``)
+    timed as :func:`cuda_ms` and :func:`cuda_cold_ms` time a kernel."""
+    fn = lambda: torch.cuda._sleep(0)  # noqa: E731
+    rec = dict(ms=cuda_ms(fn, reps=200), cold_ms=cuda_cold_ms(fn, reps=50))
+    print(f"launch floor (torch.cuda._sleep(0)): back-to-back {rec['ms']:.4f} ms, "
+          f"one launch bracketed by events after an L2 flush {rec['cold_ms']:.4f} ms")
+    return rec
 
 
 def phase_device():
@@ -141,10 +200,17 @@ def phase_device():
     os.makedirs("runs", exist_ok=True)
     with open("runs/nvcc_build.log", "w") as f:
         f.write(_kernels.build_log)
-    for line in _kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    print(f"ptxas: {ptxas_summary(_kernels.build_log)} (runs/nvcc_build.log has each)")
     return smi
+
+
+def ptxas_summary(log: str) -> str:
+    """Entry functions, the most registers any uses, and the spill bytes of
+    ``nvcc -Xptxas -v``'s output."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
+    return (f"{len(re.findall('Compiling entry function', log))} entry functions, "
+            f"at most {max(regs, default=0)} registers, {spills} bytes of spills")
 
 
 def _bad_flow(B, h, w, g, dev):
@@ -167,37 +233,115 @@ def _random_pyramid(B, h, w, L, g, dev):
     return tuple(p.contiguous() for p in corr.corr_pyramid(corr.build_cost_volume(f1, f2), L))
 
 
-def check_lookup_forward(tag, pyr, coords, r, rate) -> dict:
-    """``corr.lookup`` against ``lookup_plain`` on one pyramid, with times
-    and the bound."""
-    from tcs_tpu_torch.ops import corr
+def grid_sample_lookup(pyr, coords, r):
+    """The lookup as the library computes it: per level one
+    ``F.grid_sample`` of the rows (rows, 1, 1, W2ᵢ) at the 2r+1 window
+    positions (grid (rows, 1, 2r+1, 2), ``align_corners=True``, zero padding),
+    then the concatenation. The port never calls it: it is the yardstick of
+    the lookup rows. Returns the function of the levels and ``pyr``'s rows as
+    its levels. The grid is in the levels' type, as ``grid_sample`` requires,
+    so in bf16 its positions round; non-finite coordinates become far-out
+    ones."""
+    import torch.nn.functional as F
 
-    name = str(pyr[0].dtype).split(".")[-1]
-    out = corr.lookup(pyr, coords, r)
-    ref = corr.lookup_plain(pyr, coords, r)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    print(f"lookup[{tag}] max|d| = {err:.3e} (tol {LOOKUP_TOL[name]:.0e})")
-    if not torch.isfinite(out).all() or not err <= LOOKUP_TOL[name]:
-        fail(f"lookup[{tag}] disagrees with lookup_plain: {err}")
-    ms = cuda_ms(lambda: corr.lookup(pyr, coords, r))
-    plain_ms = cuda_ms(lambda: corr.lookup_plain(pyr, coords, r))
-    # Bytes the function must move: the in-range window taps this run's
-    # coordinates select, the coordinates, and the fp32 output.
+    rows = coords.numel()
+    k = torch.arange(-r, r + 1, device=coords.device, dtype=torch.float32)
+    finite = torch.where(torch.isfinite(coords), coords, -1e20).reshape(rows, 1)
+    grids = []
+    for i, p in enumerate(pyr):
+        x = finite / 2 ** i + k
+        gx = 2 * x / (p.shape[-1] - 1) - 1
+        grids.append(torch.stack([gx, torch.zeros_like(gx)], -1)
+                     .reshape(rows, 1, 2 * r + 1, 2).to(p.dtype).contiguous())
+
+    def fn(levels):
+        return torch.cat([F.grid_sample(x, gd, mode="bilinear", padding_mode="zeros",
+                                        align_corners=True).reshape(rows, 2 * r + 1)
+                          for x, gd in zip(levels, grids)], dim=-1)
+
+    return fn, [p.reshape(rows, 1, 1, p.shape[-1]) for p in pyr]
+
+
+def _lookup_bytes(pyr, coords, r) -> int:
+    """Bytes the lookup must move: the in-range window taps this run's
+    coordinates select, the coordinates, and the fp32 output."""
     taps = 0
     for i, p in enumerate(pyr):
         base = torch.floor(coords / 2 ** i)[..., None] + torch.arange(
             -r, r + 2, device=coords.device)
         taps += int(((base >= 0) & (base <= p.shape[-1] - 1)).sum())
-    nbytes = taps * pyr[0].element_size() + coords.numel() * 4 + out.numel() * 4
-    print(f"lookup[{tag}] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-          f"bound_ms {nbytes / rate * 1e3:.4f} ({nbytes} B)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=nbytes / rate * 1e3)
+    return (taps * pyr[0].element_size() + coords.numel() * 4
+            + coords.numel() * len(pyr) * (2 * r + 1) * 4)
+
+
+def check_lookup(tag, pyr, coords, gout, r, rate) -> dict:
+    """``corr.lookup`` and its backward against ``lookup_plain`` and
+    ``lookup_bwd_plain`` on one pyramid, with times (warm and cold), bounds
+    and the ``grid_sample`` yardstick. ``coords`` holds non-finite and far-out
+    values: the forward gives NaN where the plain version does, and the
+    backward a row of zeros. Returns the records of both kernels."""
+    from tcs_tpu_torch.ops import corr
+
+    name = str(pyr[0].dtype).split(".")[-1]
+    dt, widths = pyr[0].dtype, [p.shape[-1] for p in pyr]
+    out = corr.lookup(pyr, coords, r)
+    ref = corr.lookup_plain(pyr, coords, r)
+    torch.cuda.synchronize()
+    nan = ref.isnan()
+    err = (out[~nan] - ref[~nan]).abs().max().item()
+    print(f"lookup[{tag}] max|d| = {err:.3e} (tol {LOOKUP_TOL[name]:.0e}), "
+          f"{int(nan.sum())} NaN outputs where the plain version has them")
+    if not torch.equal(out.isnan(), nan) or not torch.isfinite(out[~nan]).all() \
+            or not err <= LOOKUP_TOL[name]:
+        fail(f"lookup[{tag}] disagrees with lookup_plain: {err}")
+    # Through the wrapper: the autograd function's backward launches the kernel.
+    leaves = [p.clone().requires_grad_() for p in pyr]
+    outs = torch.autograd.grad(corr.lookup(leaves, coords, r), leaves, gout)
+    refs = corr.lookup_bwd_plain(gout, coords, r, widths, dt)
+    torch.cuda.synchronize()
+    scale = max(x.float().abs().max().item() for x in refs)
+    berr = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, refs))
+    btol = LOOKUP_BWD_RTOL[name] * scale
+    print(f"lookup_bwd[{tag}] max|d| = {berr:.3e} (tol {btol:.3e} = "
+          f"{LOOKUP_BWD_RTOL[name]:.1e} x {scale:.3e})")
+    if not all(torch.isfinite(a.float()).all() for a in outs) or not berr <= btol:
+        fail(f"lookup_bwd[{tag}] disagrees with lookup_bwd_plain: {berr}")
+    bad = ~torch.isfinite(coords) | (coords.abs() > 1e10)
+    if any(a[bad].any() for a in outs):
+        fail(f"lookup_bwd[{tag}]: a non-finite or far-out coordinate did not give a row of zeros")
+
+    fwd = dict(max_abs_err=err, ms=cuda_ms(lambda: corr.lookup(pyr, coords, r)),
+               cold_ms=cuda_cold_ms(lambda: corr.lookup(pyr, coords, r)),
+               plain_ms=cuda_ms(lambda: corr.lookup_plain(pyr, coords, r), reps=10),
+               bound_ms=_lookup_bytes(pyr, coords, r) / rate * 1e3)
+    bwd_fn = lambda: corr._launch_lookup_bwd(gout, coords, r, widths, dt)  # noqa: E731
+    # Bytes: the whole gradient pyramid written once, g and coords read once.
+    bbytes = (sum(a.numel() * a.element_size() for a in outs)
+              + gout.numel() * 4 + coords.numel() * 4)
+    bwd = dict(max_abs_err=berr, ms=cuda_ms(bwd_fn), cold_ms=cuda_cold_ms(bwd_fn),
+               plain_ms=cuda_ms(lambda: corr.lookup_bwd_plain(gout, coords, r, widths, dt),
+                                reps=10),
+               bound_ms=bbytes / rate * 1e3)
+    # Library yardstick, forward and autograd backward to the levels.
+    lib_fn, lib_in = grid_sample_lookup(pyr, coords, r)
+    lib_levels = [x.detach().requires_grad_() for x in lib_in]
+    lib_out = lib_fn(lib_levels)
+    lib_err = (lib_out.float().reshape(ref.shape)[~nan] - ref[~nan]).abs().max().item()
+    fwd["library_ms"] = cuda_ms(lambda: lib_fn(lib_in))
+    bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, lib_levels, gout.reshape(lib_out.shape).to(lib_out.dtype), retain_graph=True))
+    for kname, rec, nbytes in (("lookup", fwd, None), ("lookup_bwd", bwd, bbytes)):
+        print(f"{kname}[{tag}] kernel_ms {rec['ms']:.4f} cold_ms {rec['cold_ms']:.4f} "
+              f"plain_ms {rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f} "
+              f"bound_ms {rec['bound_ms']:.4f}" + (f" ({nbytes} B)" if nbytes else ""))
+    print(f"lookup[{tag}] library: 4 calls of grid_sample; its max|d| against lookup_plain "
+          f"{lib_err:.3e}")
+    return {"lookup": fwd, "lookup_bwd": bwd}
 
 
 def check_splat_forward(tag, values, flow, rate) -> dict:
-    """``splat.splat_sum`` against ``splat_sum_plain``, with times, the
-    ``index_add_`` yardstick and the bound."""
+    """``splat.splat_sum`` against ``splat_sum_plain``, with times (warm and
+    cold), the ``index_add_`` yardstick and the bound."""
     from tcs_tpu_torch.ops import splat
 
     C = values.shape[-1]
@@ -210,6 +354,7 @@ def check_splat_forward(tag, values, flow, rate) -> dict:
     if not torch.isfinite(out).all() or not err <= SPLAT_RTOL * scale:
         fail(f"splat_sum[{tag}] disagrees with splat_sum_plain: {err}")
     ms = cuda_ms(lambda: splat.splat_sum(values, flow))
+    cold_ms = cuda_cold_ms(lambda: splat.splat_sum(values, flow))
     plain_ms = cuda_ms(lambda: splat.splat_sum_plain(values, flow), reps=10)
     # Library yardstick: one index_add_ of the four taps' weighted rows.
     rows_i, idx, wgt = _flat_taps(flow)
@@ -217,32 +362,98 @@ def check_splat_forward(tag, values, flow, rate) -> dict:
     acc = torch.zeros(values.numel() // C, C, device=values.device)
     library_ms = cuda_ms(lambda: acc.index_add_(0, idx, rows))
     nbytes = (values.numel() + flow.numel() + out.numel()) * 4
-    print(f"splat_sum[{tag}] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-          f"{library_ms:.4f} bound_ms {nbytes / rate * 1e3:.4f} ({nbytes} B)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=nbytes / rate * 1e3,
-                library_ms=library_ms)
+    print(f"splat_sum[{tag}] kernel_ms {ms:.4f} cold_ms {cold_ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {library_ms:.4f} bound_ms {nbytes / rate * 1e3:.4f} ({nbytes} B)")
+    return dict(max_abs_err=err, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
+                bound_ms=nbytes / rate * 1e3, library_ms=library_ms)
+
+
+# Grid of the lookup on each path: (batch, h, w) at a quarter of the image.
+LOOKUP_SHAPES = {"inference": (1, MAIN_H // 4, MAIN_W // 4),
+                 "training": (TRAIN_B, TRAIN_H // 4, TRAIN_W // 4)}
+LOOKUP_LEVELS, LOOKUP_RADIUS = 4, 4
+
+
+def lookup_inputs(shape: str, g: torch.Generator):
+    """An fp32 pyramid, coordinates and an output cotangent at one path's
+    shapes. The coordinates run past both ends of the rows (zero padding),
+    and a few are non-finite or far out."""
+    dev = torch.device("cuda")
+    B, h, w = LOOKUP_SHAPES[shape]
+    L, r = LOOKUP_LEVELS, LOOKUP_RADIUS
+    pyr32 = _random_pyramid(B, h, w, L, g, dev)
+    coords = (torch.rand(B, h, w, generator=g) * (w + 40) - 20).to(dev)
+    coords[0, 0, :5] = torch.tensor([float("nan"), float("inf"), float("-inf"), 1e20, -1e20],
+                                    device=dev)
+    gout = torch.randn(B, h, w, L * (2 * r + 1), generator=g).to(dev)
+    return pyr32, coords, gout
+
+
+def lookup_records(rate: float, g: torch.Generator) -> dict:
+    """Both lookup kernels against their plain versions at both paths' shapes,
+    fp32 and bf16 pyramids: records by (kernel, shape, type)."""
+    records = {}
+    for shape, (B, h, w) in LOOKUP_SHAPES.items():
+        pyr32, coords, gout = lookup_inputs(shape, g)
+        for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            pyr = tuple(p.to(dt).contiguous() for p in pyr32)
+            recs = check_lookup(f"{name}, B{B} {h}x{w}", pyr, coords, gout, LOOKUP_RADIUS, rate)
+            records["corr_lookup", shape, name] = recs["lookup"]
+            records["corr_lookup_bwd", shape, name] = recs["lookup_bwd"]
+    return records
 
 
 def phase_kernels(rate: float) -> dict:
-    """Every kernel against its plain version: the forward kernels at the
-    inference path's shapes here, all four at the training path's shapes in
-    :func:`phase_training_shape_kernels`. Records by kernel and shape."""
+    """Every kernel against its plain version: both lookup kernels at the
+    inference path's shapes (batch 1, 96×320 grid) and at the training
+    path's (batch 4, 80×180), the splat at both, its backward at the
+    training path's. Records by (kernel, shape, type)."""
+    from tcs_tpu_torch.ops import splat
+
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
-    B, h, w, L, r = 1, MAIN_H // 4, MAIN_W // 4, 4, 4
-    pyr32 = _random_pyramid(B, h, w, L, g, dev)
-    # Coordinates past both ends of the row exercise the zero padding.
-    coords = (torch.rand(B, h, w, generator=g) * (w + 40) - 20).to(dev)
-    records = {}
-    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        pyr = tuple(p.to(dt).contiguous() for p in pyr32)
-        records["lookup_" + name] = check_lookup_forward(
-            f"{name}, B{B} {h}x{w}", pyr, coords, r, rate)
+    records = lookup_records(rate, g)
     # Splat at the warp's payload: (B, h, w, 258) fp32.
-    values = torch.randn(B, h, w, 258, generator=g).to(dev)
-    records["splat"] = check_splat_forward(f"B{B} {h}x{w}x258", values,
-                                           _bad_flow(B, h, w, g, dev), rate)
-    records.update(phase_training_shape_kernels(rate, g))
+    C = 258
+    for shape, (B, h, w) in LOOKUP_SHAPES.items():
+        values = torch.randn(B, h, w, C, generator=g).to(dev)
+        flow = _bad_flow(B, h, w, g, dev)
+        records["splat_sum", shape, "float32"] = check_splat_forward(
+            f"B{B} {h}x{w}x{C}", values, flow, rate)
+    tag = f"B{B} {h}x{w}x{C}"  # the training path's, the last of the loop
+    gsplat = torch.randn(B, h, w, C, generator=g).to(dev)
+    v, f = values.clone().requires_grad_(), flow.clone().requires_grad_()
+    dv, df = torch.autograd.grad(splat.splat_sum(v, f), (v, f), gsplat)
+    rdv, rdf = splat.splat_sum_bwd_plain(gsplat, values, flow)
+    torch.cuda.synchronize()
+    errs = {}
+    for nm, a, b, rtol in (("dvalues", dv, rdv, SPLAT_BWD_DVALUES_RTOL),
+                           ("dflow", df, rdf, SPLAT_BWD_DFLOW_RTOL)):
+        scale = b.abs().max().item()
+        errs[nm] = (a - b).abs().max().item()
+        print(f"splat_sum_bwd[{tag}] {nm} max|d| = {errs[nm]:.3e} "
+              f"(tol {rtol:.0e} x {scale:.3e})")
+        if not torch.isfinite(a).all() or not errs[nm] <= rtol * scale:
+            fail(f"splat_sum_bwd {nm} disagrees with splat_sum_bwd_plain: {errs[nm]}")
+    if df[:, 50, 100:140].any() or dv[:, 60, 10:20].any():
+        fail("splat_sum_bwd: a non-finite target did not give zero gradients")
+    bwd_fn = lambda: splat._launch_splat_sum_bwd(gsplat, values, flow)  # noqa: E731
+    ms, cold_ms = cuda_ms(bwd_fn), cuda_cold_ms(bwd_fn)
+    plain_ms = cuda_ms(lambda: splat.splat_sum_bwd_plain(gsplat, values, flow), reps=10)
+    # Library yardstick: autograd through one index_add of the taps' weighted
+    # rows, which gives the gradient of those rows (a gather of g), not dflow.
+    rows_i, tgt_i, wgt = _flat_taps(flow)
+    rows = (values.reshape(-1, C)[rows_i] * wgt[:, None]).requires_grad_()
+    acc = torch.zeros(B * h * w, C, device=dev).index_add(0, tgt_i, rows)
+    gflat = gsplat.reshape(-1, C)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(acc, rows, gflat, retain_graph=True))
+    nbytes = (3 * values.numel() + 2 * flow.numel()) * 4  # g, values, flow in; dvalues, dflow out
+    records["splat_sum_bwd", "training", "float32"] = dict(
+        max_abs_err=max(errs.values()), ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
+        bound_ms=nbytes / rate * 1e3, library_ms=library_ms)
+    print(f"splat_sum_bwd[{tag}] kernel_ms {ms:.4f} cold_ms {cold_ms:.4f} plain_ms "
+          f"{plain_ms:.4f} library_ms {library_ms:.4f} (index_add backward: the rows' "
+          f"gradient only) bound_ms {nbytes / rate * 1e3:.4f} ({nbytes} B)")
     return records
 
 
@@ -267,89 +478,6 @@ def _flat_taps(flow):
         tgts.append((boff + yi * w + xi)[ok].long())
         wgts.append(((1 - (tx - xi).abs()) * (1 - (ty - yi).abs()))[ok])
     return torch.cat(rows), torch.cat(tgts), torch.cat(wgts)
-
-
-def phase_training_shape_kernels(rate: float, g: torch.Generator) -> dict:
-    """All four kernels against their plain versions at the training path's
-    shapes (batch 4, 80×180 quarter-resolution grid): the forward kernels on
-    the tensors whose gradients the backward kernels then return."""
-    from tcs_tpu_torch.ops import corr, splat
-
-    dev = torch.device("cuda")
-    B, h, w, L, r = TRAIN_B, TRAIN_H // 4, TRAIN_W // 4, 4, 4
-    shape = f"B{B} {h}x{w}"
-    widths = [w >> i for i in range(L)]
-    pyr32 = _random_pyramid(B, h, w, L, g, dev)
-    coords = (torch.rand(B, h, w, generator=g) * (w + 40) - 20).to(dev)
-    # The backward also sees coordinates no row can hold.
-    coords_bad = coords.clone()
-    coords_bad[0, 0, :4] = torch.tensor([float("nan"), float("inf"), 1e20, -1e20], device=dev)
-    gout = torch.randn(B, h, w, L * (2 * r + 1), generator=g).to(dev)
-    records = {}
-    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        pyr = tuple(p.to(dt).contiguous() for p in pyr32)
-        records["train_lookup_" + name] = check_lookup_forward(
-            f"{name}, {shape}", pyr, coords, r, rate)
-        # Through the wrapper: the autograd function's backward launches the kernel.
-        leaves = [p.clone().requires_grad_() for p in pyr]
-        outs = torch.autograd.grad(corr.lookup(leaves, coords_bad, r), leaves, gout)
-        refs = corr.lookup_bwd_plain(gout, coords_bad, r, widths, dt)
-        torch.cuda.synchronize()
-        scale = max(x.float().abs().max().item() for x in refs)
-        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, refs))
-        tol = LOOKUP_BWD_RTOL[name] * scale
-        print(f"lookup_bwd[{name}, {shape}] max|d| = {err:.3e} (tol {tol:.3e} = "
-              f"{LOOKUP_BWD_RTOL[name]:.1e} x {scale:.3e})")
-        if not all(torch.isfinite(a.float()).all() for a in outs) or not err <= tol:
-            fail(f"lookup_bwd[{name}] disagrees with lookup_bwd_plain: {err}")
-        if any(a[0, 0, :4].any() for a in outs):
-            fail(f"lookup_bwd[{name}]: a non-finite coordinate did not give a row of zeros")
-        ms = cuda_ms(lambda: corr._launch_lookup_bwd(gout, coords_bad, r, widths, dt))
-        plain_ms = cuda_ms(lambda: corr.lookup_bwd_plain(gout, coords_bad, r, widths, dt))
-        # Bytes: the whole gradient pyramid written once, g and coords read once.
-        nbytes = (sum(a.numel() * a.element_size() for a in outs)
-                  + gout.numel() * 4 + coords.numel() * 4)
-        records["lookup_bwd_" + name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                             bound_ms=nbytes / rate * 1e3)
-        print(f"lookup_bwd[{name}, {shape}] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"bound_ms {nbytes / rate * 1e3:.4f} ({nbytes} B)")
-
-    C = 258
-    values = torch.randn(B, h, w, C, generator=g).to(dev)
-    flow = _bad_flow(B, h, w, g, dev)
-    records["train_splat"] = check_splat_forward(f"{shape}x{C}", values, flow, rate)
-    gsplat = torch.randn(B, h, w, C, generator=g).to(dev)
-    v, f = values.clone().requires_grad_(), flow.clone().requires_grad_()
-    dv, df = torch.autograd.grad(splat.splat_sum(v, f), (v, f), gsplat)
-    rdv, rdf = splat.splat_sum_bwd_plain(gsplat, values, flow)
-    torch.cuda.synchronize()
-    errs = {}
-    for nm, a, b, rtol in (("dvalues", dv, rdv, SPLAT_BWD_DVALUES_RTOL),
-                           ("dflow", df, rdf, SPLAT_BWD_DFLOW_RTOL)):
-        scale = b.abs().max().item()
-        errs[nm] = (a - b).abs().max().item()
-        print(f"splat_sum_bwd[{shape}x{C}] {nm} max|d| = {errs[nm]:.3e} "
-              f"(tol {rtol:.0e} x {scale:.3e})")
-        if not torch.isfinite(a).all() or not errs[nm] <= rtol * scale:
-            fail(f"splat_sum_bwd {nm} disagrees with splat_sum_bwd_plain: {errs[nm]}")
-    if df[:, 50, 100:140].any() or dv[:, 60, 10:20].any():
-        fail("splat_sum_bwd: a non-finite target did not give zero gradients")
-    ms = cuda_ms(lambda: splat._launch_splat_sum_bwd(gsplat, values, flow))
-    plain_ms = cuda_ms(lambda: splat.splat_sum_bwd_plain(gsplat, values, flow), reps=10)
-    # Library yardstick: autograd through one index_add of the taps' weighted
-    # rows, which gives the gradient of those rows (a gather of g), not dflow.
-    rows_i, tgt_i, wgt = _flat_taps(flow)
-    rows = (values.reshape(-1, C)[rows_i] * wgt[:, None]).requires_grad_()
-    acc = torch.zeros(B * h * w, C, device=dev).index_add(0, tgt_i, rows)
-    gflat = gsplat.reshape(-1, C)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(acc, rows, gflat, retain_graph=True))
-    nbytes = (3 * values.numel() + 2 * flow.numel()) * 4  # g, values, flow in; dvalues, dflow out
-    records["splat_bwd"] = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                                bound_ms=nbytes / rate * 1e3, library_ms=library_ms)
-    print(f"splat_sum_bwd[{shape}x{C}] kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-          f"{library_ms:.4f} (index_add backward: the rows' gradient only) "
-          f"bound_ms {nbytes / rate * 1e3:.4f} ({nbytes} B)")
-    return records
 
 
 def _camera(B, H, W, device):
@@ -644,45 +772,43 @@ def main() -> None:
         fail("no CUDA device")
     smi = phase_device()
     rate = hbm_bytes_per_s(smi)
+    launch_floor()
     rec = phase_kernels(rate)
     phase_small_parity()
     paths = {"inference": phase_main_path(smi), "op_gradients": phase_op_gradients()}
     phase_small_gradient_parity()
     paths["training"] = phase_training_path(smi)
     # `launches` sums the driven paths, each of which set the counts to 0
-    # before it and read them after. `ms`, `plain_ms`, `bound_ms` and
-    # `library_ms` are at the shapes and the pyramid type (bf16) of the path
-    # that launches the kernel most: the inference path's for the forward
-    # kernels, the training path's for the backward ones. The forward
-    # kernels' numbers at the training path's shapes stand beside them, and
-    # `max_abs_err` is the largest over every shape and type checked.
+    # before it and read them after. The times and the bound are at the
+    # shapes of the path that launches the kernel most, in the type it runs
+    # there: the inference path's for the forward kernels, the training
+    # path's for the backward ones; bf16 pyramids, fp32 splat payloads. The
+    # forward kernels' numbers at the training path's shapes stand beside
+    # them, and `max_abs_err` is the largest over every shape and type checked.
     sources = {
-        "corr_lookup": ("corr_lookup.cu", "tcs_tpu/ops/pallas/corr_kernel.py:76",
-                        "lookup_bfloat16", ("lookup_float32", "train_lookup_float32"),
-                        "train_lookup_bfloat16"),
-        "corr_lookup_bwd": ("corr_lookup_bwd.cu", "tcs_tpu/ops/corr.py:341",
-                            "lookup_bwd_bfloat16", ("lookup_bwd_float32",), None),
-        "splat_sum": ("softsplat.cu", "tcs_tpu/ops/splat.py:30", "splat", (), "train_splat"),
-        "splat_sum_bwd": ("softsplat_bwd.cu", "tcs_tpu/ops/splat.py:139", "splat_bwd", (),
-                          None),
+        "corr_lookup": ("corr_lookup.cu", "tcs_tpu/ops/pallas/corr_kernel.py:76", "bfloat16"),
+        "corr_lookup_bwd": ("corr_lookup_bwd.cu", "tcs_tpu/ops/corr.py:341", "bfloat16"),
+        "splat_sum": ("softsplat.cu", "tcs_tpu/ops/splat.py:30", "float32"),
+        "splat_sum_bwd": ("softsplat_bwd.cu", "tcs_tpu/ops/splat.py:139", "float32"),
     }
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    keys = ("ms", "cold_ms", "plain_ms", "bound_ms", "library_ms")
     kernels = []
-    for name, (src, replaces, main, others, train) in sources.items():
+    for name, (src, replaces, dtype) in sources.items():
         by_path = {p: c[name] for p, c in paths.items()}
-        r = rec[main]
-        checked = [main, *others] + ([train] if train else [])
+        mine = {k: v for k, v in rec.items() if k[0] == name}
+        shape = "training" if name.endswith("_bwd") else "inference"
         entry = dict(
             name=name, route="cuda", source="tcs_tpu_torch/csrc/" + src, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=max(rec[k]["max_abs_err"] for k in checked),
-            bound_by="bytes", **{k: r.get(k) for k in keys})
-        if train:
-            entry["at_training_shapes"] = {k: rec[train].get(k) for k in keys}
+            max_abs_err=max(r["max_abs_err"] for r in mine.values()),
+            bound_by="bytes", **{k: rec[name, shape, dtype].get(k) for k in keys})
+        if shape == "inference":
+            entry["at_training_shapes"] = {k: rec[name, "training", dtype].get(k) for k in keys}
         kernels.append(entry)
-        for k in others:
-            print(f"{name} {k}: ms {rec[k]['ms']:.4f} plain_ms {rec[k]['plain_ms']:.4f} "
-                  f"bound_ms {rec[k]['bound_ms']:.4f}")
+        for (_, sh, dt), r in mine.items():
+            print(f"{name} [{sh}, {dt}]: ms {r['ms']:.4f} cold_ms {r['cold_ms']:.4f} "
+                  f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+                  f"bound_ms {r['bound_ms']:.4f} max|d| {r['max_abs_err']:.3e}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,8 @@ For each (weights seed, scene seed) pair one window of the small fp32 model
 ``accumulate_window_grads``:
 
 - ``f64``: on the CPU in float64, the same code with every fp32 cast widened
-  (see :func:`widened`). Every other run is held against this one;
+  (``tcs_tpu_torch.utils.kinks.widened``). Every other run is held against
+  this one;
 - ``cpu32``: on the CPU in fp32 (plain versions of the kernels);
 - ``card32``: where there is a CUDA device, on the card in fp32 with TF32 off
   (the hand-written kernels);
@@ -48,24 +49,12 @@ from tcs_tpu_torch.models import TCStereo  # noqa: E402
 from tcs_tpu_torch.models.layers import set_compute_dtype  # noqa: E402
 from tcs_tpu_torch.train import SequenceBatch  # noqa: E402
 from tcs_tpu_torch.train.train_step import accumulate_window_grads  # noqa: E402
-from tcs_tpu_torch.utils.kinks import Kinks  # noqa: E402
+from tcs_tpu_torch.utils.kinks import Kinks, widened  # noqa: E402
 
 H, W, B, FRAMES, ITERS = 64, 96, 2, 2, 2
 SEED_PAIRS = ((61, 7), (62, 17), (63, 27), (64, 37), (65, 47), (66, 57))
 LEAVES = ("cnet.conv1.weight", "update_block.gru08.convzr.weight",
           "disp_completor.conv_disp_stem.0.weight", "disp_refine.mask.2.weight")
-
-
-@contextlib.contextmanager
-def widened():
-    """Inside the block ``Tensor.float()`` widens to float64, so a model set
-    to float64 keeps that width through the port's explicit fp32 casts."""
-    saved = torch.Tensor.float
-    torch.Tensor.float = torch.Tensor.double
-    try:
-        yield
-    finally:
-        torch.Tensor.float = saved
 
 
 def window_grads(model_seed, scene_seed, device, wide=False, perturb=False, replay=None):

@@ -156,6 +156,8 @@ def _check_lookup_args(pyramid, coords_x, radius):
     if dt not in (torch.float32, torch.bfloat16) or coords_x.dtype != torch.float32:
         raise TypeError("lookup kernel takes an fp32 or bf16 pyramid and fp32 coords")
     B, H, W1, W2 = pyramid[0].shape
+    if W2 >= 2 ** 24:  # the kernels compare columns in fp32, exact below 2^24
+        raise ValueError(f"lookup kernels take rows shorter than 2^24 cells, got {W2}")
     if coords_x.shape != (B, H, W1):
         raise ValueError(f"coords {tuple(coords_x.shape)} != {(B, H, W1)}")
     for i, p in enumerate(pyramid):

@@ -9,10 +9,14 @@ small model a few dozen do so between any two fp32 runs, and a leaf whose
 gradient sums over few pixels then differs by percents of its largest entry
 (``scripts/torch_grad_parity_seeds.py`` counts them). With every unit put on
 the side the other run took, what is left is the rounding of the arithmetic,
-and a gradient check can be held to a tight bound.
+and a gradient check can be held to a tight bound. The witness to hold an
+fp32 run against is a float64 run of the same code (:func:`widened`) with the
+fp32 run's kinks pinned to its sides.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -50,3 +54,15 @@ class Kinks:
     def crossed(self, other) -> int:
         """Units that fall on another side than in ``other``, a ``sides`` record."""
         return sum(int((a != b).sum()) for a, b in zip(self.sides, other))
+
+
+@contextlib.contextmanager
+def widened():
+    """Inside the block ``Tensor.float()`` widens to float64, so a model set
+    to float64 keeps that width through the port's explicit fp32 casts."""
+    saved = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.Tensor.float = saved

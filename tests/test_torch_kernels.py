@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for the card and
-skips without one. On a GPU machine: ``python -m pytest tests/test_torch_kernels.py``.
+skips without one. On a GPU machine, where JAX is missing and
+``tests/conftest.py`` cannot be imported:
+``python -m pytest --noconftest tests/test_torch_kernels.py``.
 """
 
 import numpy as np
@@ -56,6 +58,79 @@ def test_lookup_kernel_rejects_bad_input(cuda_device):
         corr.lookup(pyr, coords.cpu(), 4)
     with pytest.raises(TypeError):
         corr.lookup(pyr, coords.double(), 4)
+
+
+LOOKUP_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-6}  # as chip_smoke.py holds them
+# Level widths: 45 → 22 → 11 → 5 and 180 → 90 → 45 → 22, whose rows straddle
+# the backward's 16-byte chunks; 8 → 4 → 2 → 1, every level narrower than a
+# radius-8 window.
+EDGE_WIDTHS = (45, 180, 8)
+EDGE_ROWS = (1, 7, 33)  # fewer than a block, and not a multiple of one
+EDGE_RADII = (1, 8)  # the kernels' template bounds
+EDGE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _edge_inputs(dtype, radius, rows, width, dev, seed):
+    """A 4-level pyramid of ``rows`` rows (1, 1, rows, width >> i), its
+    coordinates and an output cotangent. From the sixth row on the
+    coordinates are random across and past the row; the first five are NaN,
+    +inf, -inf, +1e20 and -1e20 where there are that many rows."""
+    g = torch.Generator().manual_seed(seed)
+    f1 = torch.randn(1, 1, rows, 16, generator=g)
+    f2 = torch.randn(1, 1, width, 16, generator=g)
+    pyr = tuple(p.to(dtype).contiguous().to(dev)
+                for p in corr.corr_pyramid(corr.build_cost_volume(f1, f2), 4))
+    coords = torch.rand(1, 1, rows, generator=g) * (width + 2 * radius + 4) - radius - 2
+    if rows >= 5:
+        coords[0, 0, :5] = torch.tensor([float("nan"), float("inf"), float("-inf"),
+                                         1e20, -1e20])
+    cot = torch.randn(1, 1, rows, 4 * (2 * radius + 1), generator=g)
+    return pyr, coords.to(dev), cot.to(dev)
+
+
+@pytest.mark.parametrize("width", EDGE_WIDTHS)
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+@pytest.mark.parametrize("radius", EDGE_RADII)
+@pytest.mark.parametrize("dtype", EDGE_DTYPES)
+def test_lookup_kernel_edges(cuda_device, dtype, radius, rows, width):
+    """The forward kernel at the edges of its grid and its templates: NaN
+    where the plain version has NaN (a non-finite coordinate), the rest
+    within LOOKUP_TOL, zeros for far-out coordinates."""
+    pyr, coords, _ = _edge_inputs(dtype, radius, rows, width, cuda_device, seed=rows + width)
+    before = _kernels.launches["corr_lookup"]
+    out = corr.lookup(pyr, coords, radius)
+    torch.cuda.synchronize()
+    assert _kernels.launches["corr_lookup"] == before + 1
+    ref = corr.lookup_plain(pyr, coords, radius)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    nan = ref.isnan()
+    assert torch.equal(out.isnan(), nan)
+    assert (out[~nan] - ref[~nan]).abs().max().item() <= LOOKUP_TOL[dtype]
+    if rows >= 5:
+        assert not out[0, 0, 3:5].any()  # ±1e20 reads no tap
+
+
+@pytest.mark.parametrize("width", EDGE_WIDTHS)
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+@pytest.mark.parametrize("radius", EDGE_RADII)
+@pytest.mark.parametrize("dtype", EDGE_DTYPES)
+def test_lookup_backward_kernel_edges(cuda_device, dtype, radius, rows, width):
+    """The backward kernel at the edges of its grid and its templates, bit
+    for bit the plain backward: ragged level tails, chunks that straddle
+    rows, rows of zeros for non-finite and far-out coordinates."""
+    pyr, coords, cot = _edge_inputs(dtype, radius, rows, width, cuda_device,
+                                    seed=100 + rows + width)
+    leaves = [p.clone().requires_grad_() for p in pyr]
+    before = _kernels.launches["corr_lookup_bwd"]
+    grads = torch.autograd.grad(corr.lookup(leaves, coords, radius), leaves, cot)
+    torch.cuda.synchronize()
+    assert _kernels.launches["corr_lookup_bwd"] == before + 1
+    refs = corr.lookup_bwd_plain(cot, coords, radius, [p.shape[-1] for p in pyr], dtype)
+    for a, b in zip(grads, refs):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+        if rows >= 5:
+            assert not a[0, 0, :5].any()
 
 
 def test_splat_kernel(cuda_device):

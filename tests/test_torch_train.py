@@ -17,8 +17,9 @@ largest reading over both pairs on an 8-core x86 CPU beside them:
 - train-mode outputs: 5e-2 px on flows (measured ≤ 2.5e-4), 1e-3 on the
   refined gradients and the cost volume (≤ 5.2e-5);
 - loss: 1e-3 relative (measured ≤ 4e-7; its metrics ≤ 7e-7);
-- the four named leaves: 1e-2 of the leaf's largest gradient entry (measured
-  ≤ 5.5e-4 on frame 0, ≤ 2.9e-4 on frame 1); the whole gradient in
+- the four named leaves: 3e-2 of the leaf's largest gradient entry, the
+  free-kink limit that ``chip_smoke.py`` phase 6 holds them to (see below);
+  the whole gradient and the median leaf at 1e-2 in
   ``test_frame_gradient_of_every_parameter``;
 - ``live_loss`` and ``grad_norm`` of two steps: 1e-3 relative (measured
   ≤ 4e-7 and ≤ 6e-6).
@@ -34,6 +35,19 @@ on the named leaves and up to 4e-2 on a leaf that sums over few pixels, and
 4e-5 or less on the named leaves once the kinks are pinned
 (``tcs_tpu_torch/utils/kinks.py``). The units of the JAX model cannot be
 pinned from here, so the bounds below are those of runs with free kinks.
+
+How far the free kinks move a named leaf depends on the host. On one 8-core
+host (torch 2.12, jax 0.9) the named leaves read ≤ 5.5e-4 on frame 0 and
+≤ 2.9e-4 on frame 1. On another (8 cores, torch 2.13.0+cpu, jax 0.9.0,
+``OMP_NUM_THREADS`` 8 or 1) seed pair (61, 7), frame 1, read 2.0e-2 on
+``cnet.conv1.weight`` and 1.7e-2 on ``disp_completor.conv_disp_stem.0.weight``.
+Against a float64 run of the port the same leaves read 4.9e-4 and 7.3e-4 for
+``tcs_tpu`` and 2.0e-2 and 1.7e-2 for the port's fp32, whose free run put 12
+of 21,554,688 ReLU units on the other side; with those pinned the port reads
+3.4e-5 and 4.5e-5. So the fault is kink noise on the port's side, not a
+wrong backward, and the bound on the named leaves is the free-kink one,
+3e-2. ``tests/test_torch_grad_witness.py`` holds the same leaves, pinned,
+to 1e-3 of the float64 gradient, where a wrong backward cannot hide.
 """
 
 import numpy as np
@@ -65,7 +79,8 @@ from tools.convert_torch_ckpt import convert_state_dict
 B, H, W, ITERS, FRAMES = 1, 64, 96, 2, 2
 FLOW_TOL, FIELD_TOL = 5e-2, 1e-3
 LOSS_RTOL = 1e-3
-GRAD_RTOL = 1e-2  # of a leaf's largest gradient entry
+GRAD_RTOL = 1e-2  # of a leaf's largest gradient entry: whole gradient, median leaf
+NAMED_GRAD_RTOL = 3e-2  # a named leaf, kinks free: chip_smoke.SMALL_GRAD_RTOL_FREE
 NAMED_LEAVES = ("cnet.conv1.weight", "update_block.gru08.convzr.weight",
                 "disp_completor.conv_disp_stem.0.weight", "disp_refine.mask.2.weight")
 SEED_PAIRS = ((61, 7), (62, 17))  # (weights, scene)
@@ -210,7 +225,7 @@ def _grad_err(r, name):
 def test_frame_gradient_of_named_leaf(two_frames, frame, leaf):
     err = _grad_err(two_frames[frame], leaf)
     print(f"frame {frame} {leaf}: {err:.2e} of the largest entry")
-    assert err <= GRAD_RTOL
+    assert err <= NAMED_GRAD_RTOL
 
 
 @pytest.mark.parametrize("frame", [0, 1])
@@ -227,8 +242,10 @@ def test_frame_gradient_of_every_parameter(two_frames, frame):
     leaf (1e-2 of its largest entry) and the worst leaf (0.3). Measured, frames
     0 and 1 of the first seed pair, then of the second: whole gradient 1.1e-4,
     1.4e-5, 1.2e-4, 1.3e-4; median leaf 6.8e-5, 2.1e-5, 2.0e-4, 2.5e-4; worst
-    leaf 6.5e-2, 2.1e-3, 4.9e-2, 4.7e-2. A bias ahead of an instance norm has no gradient but
-    rounding, on both sides.
+    leaf 6.5e-2, 2.1e-3, 4.9e-2, 4.7e-2. On the host of the module docstring's
+    second reading (torch 2.13.0+cpu), where twelve units cross, frame 1 of the
+    first pair reads 8.2e-3, 6.3e-4 and 8.3e-2. A bias ahead of an instance norm
+    has no gradient but rounding, on both sides.
     """
     r = two_frames[frame]
     assert set(r["jg"]) == set(r["tg"])
