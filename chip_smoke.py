@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero:
    card's launch floor, bounds and library yardsticks: both lookup kernels at
    the inference path's shapes (batch 1, 96×320 grid) and at the training
    path's (batch 4, 80×180 grid) for fp32 and bf16 pyramids, with non-finite
-   and far-out coordinates; the splat at both shapes, its backward at the
-   training path's;
+   and far-out coordinates; the splat at both shapes and under collapsing
+   columns, bit for bit against its plain version on the CPU and launch
+   against launch; its backward at the training path's;
 3. small-model parity: the fp32 config at 64×96 for 3 frames, on the card
    with the kernels and on the CPU with the plain versions, same weights;
 4. main path: ``TemporalEvaluator`` over the default config (bf16 conv
@@ -51,7 +52,10 @@ MAIN_H, MAIN_W, MAIN_ITERS, MAIN_FRAMES = 384, 1280, 5, 12
 SMALL_H, SMALL_W, SMALL_ITERS, SMALL_FRAMES = 64, 96, 2, 3
 FLOW_TOL = 5e-2  # px; the bound the CPU tests hold the port to against tcs_tpu
 LOOKUP_TOL = {"float32": 1e-5, "bfloat16": 1e-6}
-SPLAT_RTOL = 1e-5  # of max |reference|: atomics reorder the fp32 sums
+# The splat kernel must equal splat_sum_plain on CPU copies bit for bit. Only
+# the earlier atomic designs, which scripts/bench_splat_kernel.py times beside
+# it, are held to a share of max |reference| instead: atomics reorder the sums.
+SPLAT_ATOMIC_RTOL = 1e-5
 TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_FRAMES, TRAIN_ITERS = 4, 320, 720, 2, 5
 TRAIN_WARM, TRAIN_TIMED = 1, 3
 # Backward kernels against their plain versions, as shares of max |reference|.
@@ -339,19 +343,29 @@ def check_lookup(tag, pyr, coords, gout, r, rate) -> dict:
     return {"lookup": fwd, "lookup_bwd": bwd}
 
 
-def check_splat_forward(tag, values, flow, rate) -> dict:
-    """``splat.splat_sum`` against ``splat_sum_plain``, with times (warm and
-    cold), the ``index_add_`` yardstick and the bound."""
+def check_splat_forward(tag, values, flow, rate, exact=True) -> dict:
+    """``splat.splat_sum`` against ``splat_sum_plain`` run on CPU copies of the
+    inputs, which it must equal bit for bit, and two launches against each
+    other; with times (warm and cold), the ``index_add_`` yardstick and the
+    bound. ``exact=False`` is for another tree's atomic design: both checks
+    are recorded and the kernel is held to ``SPLAT_ATOMIC_RTOL`` instead."""
     from tcs_tpu_torch.ops import splat
 
     C = values.shape[-1]
-    out = splat.splat_sum(values, flow)
-    ref = splat.splat_sum_plain(values, flow)
-    torch.cuda.synchronize()
+    first, second = splat.splat_sum(values, flow), splat.splat_sum(values, flow)
+    ref = splat.splat_sum_plain(values.cpu(), flow.cpu())
+    out = first.cpu()
+    deterministic = torch.equal(out, second.cpu())
+    bit_exact = torch.equal(out, ref)
     scale = ref.abs().max().item()
     err = (out - ref).abs().max().item()
-    print(f"splat_sum[{tag}] max|d| = {err:.3e} (tol {SPLAT_RTOL:.0e} x {scale:.3e})")
-    if not torch.isfinite(out).all() or not err <= SPLAT_RTOL * scale:
+    print(f"splat_sum[{tag}] bit-exact against splat_sum_plain on the CPU: {bit_exact}; "
+          f"two launches equal: {deterministic}; max|d| = {err:.3e} of max|ref| {scale:.3e}")
+    if not torch.isfinite(out).all():
+        fail(f"splat_sum[{tag}]: a non-finite output")
+    if exact and not (bit_exact and deterministic):
+        fail(f"splat_sum[{tag}] is not bit-exact and deterministic: max|d| {err}")
+    if not exact and not err <= SPLAT_ATOMIC_RTOL * scale:
         fail(f"splat_sum[{tag}] disagrees with splat_sum_plain: {err}")
     ms = cuda_ms(lambda: splat.splat_sum(values, flow))
     cold_ms = cuda_cold_ms(lambda: splat.splat_sum(values, flow))
@@ -365,7 +379,39 @@ def check_splat_forward(tag, values, flow, rate) -> dict:
     print(f"splat_sum[{tag}] kernel_ms {ms:.4f} cold_ms {cold_ms:.4f} plain_ms {plain_ms:.4f} "
           f"library_ms {library_ms:.4f} bound_ms {nbytes / rate * 1e3:.4f} ({nbytes} B)")
     return dict(max_abs_err=err, ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
-                bound_ms=nbytes / rate * 1e3, library_ms=library_ms)
+                bound_ms=nbytes / rate * 1e3, library_ms=library_ms,
+                deterministic=deterministic, bit_exact=bit_exact)
+
+
+def _collision_flow(B, h, w, g, dev):
+    """A (B, h, w, 2) flow under which columns collapse: eight onto one in the
+    top half of the rows (buckets of about 16 keys), 32 onto one in the bottom
+    half (about 64 keys: the kernel's path for buckets over 32)."""
+    xs = torch.arange(w, dtype=torch.float32)
+    fx = torch.where(torch.arange(h)[:, None] < h // 2, -(xs % 8), -(xs % 32))
+    fx = fx + torch.rand(B, h, w, generator=g) * 0.25
+    fy = torch.randn(B, h, w, generator=g) * 0.7
+    return torch.stack([fx, fy], -1).to(dev)
+
+
+def splat_records(rate: float, g: torch.Generator, exact: bool = True) -> tuple:
+    """The splat forward against its plain version at both paths' shapes,
+    (B, h, w, 258) fp32 with out-of-image and non-finite targets, and at the
+    inference path's shape under collapsing columns: records by (kernel,
+    shape, type). The values and flows are returned beside them."""
+    dev = torch.device("cuda")
+    records, inputs = {}, {}
+    C = 258  # the warp's payload
+    for shape, (B, h, w) in LOOKUP_SHAPES.items():
+        values = torch.randn(B, h, w, C, generator=g).to(dev)
+        inputs[shape] = values, _bad_flow(B, h, w, g, dev)
+    B, h, w = LOOKUP_SHAPES["inference"]
+    inputs["collisions"] = inputs["inference"][0], _collision_flow(B, h, w, g, dev)
+    for shape, (values, flow) in inputs.items():
+        B, h, w, _ = values.shape
+        records["splat_sum", shape, "float32"] = check_splat_forward(
+            f"{shape}, B{B} {h}x{w}x{C}", values, flow, rate, exact)
+    return records, inputs
 
 
 # Grid of the lookup on each path: (batch, h, w) at a quarter of the image.
@@ -406,26 +452,29 @@ def lookup_records(rate: float, g: torch.Generator) -> dict:
 def phase_kernels(rate: float) -> dict:
     """Every kernel against its plain version: both lookup kernels at the
     inference path's shapes (batch 1, 96×320 grid) and at the training
-    path's (batch 4, 80×180), the splat at both, its backward at the
-    training path's. Records by (kernel, shape, type)."""
+    path's (batch 4, 80×180), the splat at both and under collapsing
+    columns, its backward at the training path's. Records by (kernel, shape,
+    type)."""
     from tcs_tpu_torch.ops import splat
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
     records = lookup_records(rate, g)
-    # Splat at the warp's payload: (B, h, w, 258) fp32.
-    C = 258
-    for shape, (B, h, w) in LOOKUP_SHAPES.items():
-        values = torch.randn(B, h, w, C, generator=g).to(dev)
-        flow = _bad_flow(B, h, w, g, dev)
-        records["splat_sum", shape, "float32"] = check_splat_forward(
-            f"B{B} {h}x{w}x{C}", values, flow, rate)
-    tag = f"B{B} {h}x{w}x{C}"  # the training path's, the last of the loop
+    splats, inputs = splat_records(rate, g)
+    records.update(splats)
+    values, flow = inputs["training"]
+    B, h, w, C = values.shape
+    tag = f"B{B} {h}x{w}x{C}"
     gsplat = torch.randn(B, h, w, C, generator=g).to(dev)
     v, f = values.clone().requires_grad_(), flow.clone().requires_grad_()
     dv, df = torch.autograd.grad(splat.splat_sum(v, f), (v, f), gsplat)
+    again = splat._launch_splat_sum_bwd(gsplat, values, flow)
     rdv, rdf = splat.splat_sum_bwd_plain(gsplat, values, flow)
     torch.cuda.synchronize()
+    deterministic = torch.equal(dv, again[0]) and torch.equal(df, again[1])
+    bit_exact = torch.equal(dv, rdv) and torch.equal(df, rdf)
+    print(f"splat_sum_bwd[{tag}] two launches equal: {deterministic}; bit-exact against "
+          f"splat_sum_bwd_plain: {bit_exact}")
     errs = {}
     for nm, a, b, rtol in (("dvalues", dv, rdv, SPLAT_BWD_DVALUES_RTOL),
                            ("dflow", df, rdf, SPLAT_BWD_DFLOW_RTOL)):
@@ -450,7 +499,8 @@ def phase_kernels(rate: float) -> dict:
     nbytes = (3 * values.numel() + 2 * flow.numel()) * 4  # g, values, flow in; dvalues, dflow out
     records["splat_sum_bwd", "training", "float32"] = dict(
         max_abs_err=max(errs.values()), ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
-        bound_ms=nbytes / rate * 1e3, library_ms=library_ms)
+        bound_ms=nbytes / rate * 1e3, library_ms=library_ms,
+        deterministic=deterministic, bit_exact=bit_exact)
     print(f"splat_sum_bwd[{tag}] kernel_ms {ms:.4f} cold_ms {cold_ms:.4f} plain_ms "
           f"{plain_ms:.4f} library_ms {library_ms:.4f} (index_add backward: the rows' "
           f"gradient only) bound_ms {nbytes / rate * 1e3:.4f} ({nbytes} B)")
@@ -804,6 +854,9 @@ def main() -> None:
             bound_by="bytes", **{k: rec[name, shape, dtype].get(k) for k in keys})
         if shape == "inference":
             entry["at_training_shapes"] = {k: rec[name, "training", dtype].get(k) for k in keys}
+        if name.startswith("splat"):  # over every shape checked
+            for k in ("deterministic", "bit_exact"):
+                entry[k] = all(r[k] for r in mine.values())
         kernels.append(entry)
         for (_, sh, dt), r in mine.items():
             print(f"{name} [{sh}, {dt}]: ms {r['ms']:.4f} cold_ms {r['cold_ms']:.4f} "

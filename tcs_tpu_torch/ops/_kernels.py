@@ -100,7 +100,9 @@ def _declare(lib) -> None:
     lib.tcs_corr_lookup_bwd.argtypes = [ctypes.POINTER(vp), i32, i32, vp, vp,
                                         i32, i32, i32, vp]
     lib.tcs_corr_lookup_bwd.restype = i32
-    lib.tcs_splat_sum.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.tcs_splat_sum_scratch_ints.argtypes = [ctypes.c_longlong]
+    lib.tcs_splat_sum_scratch_ints.restype = ctypes.c_longlong
+    lib.tcs_splat_sum.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
     lib.tcs_splat_sum.restype = i32
     lib.tcs_splat_sum_bwd.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
     lib.tcs_splat_sum_bwd.restype = i32

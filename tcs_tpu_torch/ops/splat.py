@@ -1,10 +1,11 @@
 """Forward softmax splatting (port of ``tcs_tpu/ops/splat.py``).
 
 ``splat_sum`` is the bilinear forward scatter-add. On a CUDA tensor it
-launches the hand-written ``csrc/softsplat.cu`` kernel (fp32 ``atomicAdd``);
-on a CPU tensor it runs :func:`splat_sum_plain`, built on ``index_add_``.
-Atomics add in an order that changes from run to run, so the two agree to a
-tolerance, not bit for bit.
+launches the hand-written ``csrc/softsplat.cu`` kernel, a gather with no
+float atomics: it sums each target cell's contributions in (tap, source
+index) order, as ``tcs_tpu``'s XLA scatter and :func:`splat_sum_plain`
+(``index_add_``, which the CPU tensors run) do. So the kernel is
+deterministic and agrees with the plain version on the CPU bit for bit.
 
 ``splat_sum`` is a ``torch.autograd.Function``. Its backward, a four-tap
 bilinear gather of the output cotangent (the math of ``splat_sum_gatherbwd``
@@ -30,6 +31,11 @@ def splat_sum_plain(values: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     neighbours of (x + flow_x, y + flow_y) with weight
     (1 − |tx − xi|)(1 − |ty − yi|). Taps outside the image are dropped and
     non-finite targets skipped (reference kernel ``softsplat.py:301-302``).
+    On the CPU, ``index_add_`` adds one tap's rows after another, each in
+    source order: every target cell sums its contributions in (tap, source
+    index) order, each product rounded before its add, as ``tcs_tpu``'s
+    scatter does and the kernel does. (On a CUDA tensor ``index_add_`` adds
+    with atomics, in no fixed order.)
 
     values: (B, H, W, C), flow: (B, H, W, 2) → (B, H, W, C).
     """
@@ -109,20 +115,27 @@ def _check_splat_args(values, flow):
     if values.dim() != 4 or flow.shape != (*values.shape[:3], 2):
         raise ValueError(f"splat_sum: values {tuple(values.shape)} and flow "
                          f"{tuple(flow.shape)} must be (B,H,W,C) and (B,H,W,2)")
+    if 4 * values.shape[:3].numel() > 2**31 - 1:
+        raise ValueError(f"splat_sum kernel: (B, H, W) {tuple(values.shape[:3])} holds "
+                         f"2^29 pixels or more, past its int32 bucket keys")
     if not (values.is_contiguous() and flow.is_contiguous()):
         raise ValueError("splat_sum kernel takes contiguous tensors")
 
 
 def _launch_splat_sum(values, flow):
-    """One launch of ``csrc/softsplat.cu``. The tensors carry no autograd
-    history here: :class:`_SplatSum` is the only caller."""
+    """One call of ``csrc/softsplat.cu``: five launches (a zero fill of the
+    counts, count, scan, fill, gather), counted as one. The tensors carry no
+    autograd history here: :class:`_SplatSum` is the only caller."""
     _check_splat_args(values, flow)
     B, H, W, C = values.shape
-    out = torch.zeros_like(values)
+    out = torch.empty_like(values)
     lib = _kernels.lib()
+    scratch = torch.empty(lib.tcs_splat_sum_scratch_ints(B * H * W), dtype=torch.int32,
+                          device=values.device)
     with torch.cuda.device(values.device):
         err = lib.tcs_splat_sum(values.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                                B, H, W, C, torch.cuda.current_stream().cuda_stream)
+                                scratch.data_ptr(), B, H, W, C,
+                                torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "splat_sum")
     _kernels.launches["splat_sum"] += 1
     return out

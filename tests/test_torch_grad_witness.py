@@ -29,6 +29,10 @@ from tcs_tpu_torch.models.layers import set_compute_dtype
 from tcs_tpu_torch.train import SequenceBatch, frame_losses
 from tcs_tpu_torch.utils.kinks import Kinks, widened
 
+# The test processes share the host: two intra-op threads each, so that
+# several workers do not oversubscribe its cores.
+torch.set_num_threads(2)
+
 B, H, W, ITERS, FRAMES = 1, 64, 96, 2, 2
 MODEL_SEED, SCENE_SEED = 61, 7
 PINNED_RTOL = 1e-3  # of the float64 gradient's largest entry

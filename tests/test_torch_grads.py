@@ -25,6 +25,10 @@ from tcs_tpu_torch.ops import corr as tcorr
 from tcs_tpu_torch.ops import splat as tsplat
 from tcs_tpu_torch.train import FrameBatch, frame_losses
 
+# The test processes share the host: two intra-op threads each, so that
+# several workers do not oversubscribe its cores.
+torch.set_num_threads(2)
+
 GRAD_RTOL = 1e-5  # of the gradient's largest entry
 RADIUS, LEVELS = 4, 4
 

@@ -10,6 +10,10 @@ from pathlib import Path
 import pytest
 import torch
 
+# The test processes share the host: two intra-op threads each, so that
+# several workers do not oversubscribe its cores.
+torch.set_num_threads(2)
+
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tools", "tcs_tpu")
 PORT_FILES = sorted((ROOT / "tcs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -13,6 +13,10 @@ import torch
 from tcs_tpu_torch.ops import _kernels
 from tcs_tpu_torch.ops import corr, splat
 
+# The test processes share the host: two intra-op threads each, so that
+# several workers do not oversubscribe its cores.
+torch.set_num_threads(2)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -133,20 +137,95 @@ def test_lookup_backward_kernel_edges(cuda_device, dtype, radius, rows, width):
             assert not a[0, 0, :5].any()
 
 
-def test_splat_kernel(cuda_device):
-    rng = np.random.default_rng(0)
-    B, H, W, C = 2, 12, 20, 258
-    values = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(np.float32))
-    flow = rng.normal(scale=3.0, size=(B, H, W, 2)).astype(np.float32)
-    flow[0, :, :3, 0] = -40.0
-    flow[1, 2, 5, 0] = np.nan
-    flow[1, 3, 7, 1] = np.inf
-    values, flow = values.to(cuda_device), torch.from_numpy(flow).to(cuda_device)
-    out = splat.splat_sum(values, flow)
+def _splat_inputs(case, B, H, W, C, seed):
+    """(values, flow) on the CPU: values from 1e-4 to 1e4 in magnitude, and a
+    flow of one kind. "mixed": small flow, some targets out of the image, a
+    NaN and an inf; "collisions": eight columns collapse onto one; "one_cell":
+    every source of an image to one point (buckets of H·W keys); "all_out":
+    every target out of the image."""
+    rng = np.random.default_rng(seed)
+    values = rng.normal(size=(B, H, W, C)) * 10.0 ** rng.uniform(-4, 4, size=(B, H, W, 1))
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    if case == "mixed":
+        flow = rng.normal(scale=3.0, size=(B, H, W, 2))
+        flow[0, :, :3, 0] = -40.0
+        flow[-1, H // 2, W // 2, 0] = np.nan
+        flow[-1, H // 3, W // 3, 1] = np.inf
+    elif case == "collisions":
+        flow = np.stack([np.broadcast_to(-(xs % 8), (B, H, W))
+                         + rng.uniform(0, 0.25, size=(B, H, W)),
+                         rng.normal(scale=0.7, size=(B, H, W))], -1)
+    elif case == "one_cell":
+        flow = np.broadcast_to(np.stack([W / 3 + 0.3 - xs, H / 2 + 0.6 - ys], -1),
+                               (B, H, W, 2))
+    else:
+        flow = np.broadcast_to(np.array([W + 5.0, -0.5]), (B, H, W, 2))
+    return (torch.from_numpy(values.astype(np.float32)),
+            torch.from_numpy(np.ascontiguousarray(flow, dtype=np.float32)))
+
+
+def _splat_on_card(values, flow, dev):
+    before = _kernels.launches["splat_sum"]
+    out = splat.splat_sum(values.to(dev), flow.to(dev))
     torch.cuda.synchronize()
-    ref = splat.splat_sum_plain(values, flow)
-    # fp32 atomics add in a varying order: hold to 1e-5 of the largest sum.
-    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert _kernels.launches["splat_sum"] == before + 1
+    return out.cpu()
+
+
+def test_splat_kernel(cuda_device):
+    """Bit for bit the plain version on the CPU: the same (tap, source) order
+    of fp32 sums, each product rounded first."""
+    values, flow = _splat_inputs("mixed", 2, 12, 20, 258, seed=0)
+    out = _splat_on_card(values, flow, cuda_device)
+    assert torch.equal(out, splat.splat_sum_plain(values, flow))
+
+
+def test_splat_kernel_is_deterministic(cuda_device):
+    """Two launches on an input where many sources meet give the same bits."""
+    values, flow = _splat_inputs("collisions", 2, 24, 40, 258, seed=1)
+    first = _splat_on_card(values, flow, cuda_device)
+    assert torch.equal(first, _splat_on_card(values, flow, cuda_device))
+    assert torch.equal(first, splat.splat_sum_plain(values, flow))
+
+
+# (case, B, H, W, C): buckets over 32 keys, every target out, odd C, and pixel
+# counts at and around the scan's 4,096-count tiles and across many of them
+# (40 tiles: more than one 32-tile window of its look-back).
+SPLAT_EDGES = [("one_cell", 2, 12, 20, 258), ("one_cell", 1, 64, 96, 5),
+               ("all_out", 2, 12, 20, 258), ("mixed", 2, 12, 20, 1),
+               ("mixed", 2, 12, 20, 257), ("collisions", 1, 5, 819, 3),
+               ("collisions", 1, 64, 64, 2), ("collisions", 1, 1, 8191, 4),
+               ("mixed", 3, 100, 150, 6), ("collisions", 2, 200, 400, 2)]
+
+
+@pytest.mark.parametrize("case,B,H,W,C", SPLAT_EDGES)
+def test_splat_kernel_edges(cuda_device, case, B, H, W, C):
+    values, flow = _splat_inputs(case, B, H, W, C, seed=B * H * W + C)
+    out = _splat_on_card(values, flow, cuda_device)
+    assert torch.equal(out, splat.splat_sum_plain(values, flow))
+    if case == "all_out":
+        assert not out.any()
+
+
+def test_splat_kernel_without_pixels(cuda_device):
+    values, flow = torch.zeros(2, 0, 7, 258), torch.zeros(2, 0, 7, 2)
+    out = _splat_on_card(values, flow, cuda_device)
+    assert out.shape == values.shape
+
+
+def test_splat_kernel_rejects_past_int32_keys(cuda_device):
+    """Its bucket keys are int32: 2^29 pixels or more raise before any launch
+    (an expanded flow and zero channels: nothing that large is allocated)."""
+    n = 2**29
+    values = torch.empty(1, 1, n, 0, device=cuda_device)
+    flow = torch.zeros(2, device=cuda_device).expand(1, 1, n, 2)
+    before = _kernels.launches["splat_sum"]
+    with pytest.raises(ValueError, match="int32"):
+        splat.splat_sum(values, flow)
+    assert _kernels.launches["splat_sum"] == before
+    ok = torch.empty(1, 1, n - 1, 0, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):  # the next check, past the limit's
+        splat.splat_sum(ok, flow[:, :, 1:])
 
 
 @pytest.mark.parametrize("dtype,radius", [(torch.float32, 4), (torch.bfloat16, 4),

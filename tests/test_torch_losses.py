@@ -20,6 +20,10 @@ from tcs_tpu_torch import geometry as tgeo
 from tcs_tpu_torch import losses as TL
 from tcs_tpu_torch.ops import sampler as tsampler
 
+# The test processes share the host: two intra-op threads each, so that
+# several workers do not oversubscribe its cores.
+torch.set_num_threads(2)
+
 B, H, W, ITERS = 2, 32, 48, 3
 h, w = H // 4, W // 4
 LOSS_RTOL = 1e-5

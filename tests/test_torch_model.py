@@ -23,6 +23,10 @@ from tcs_tpu_torch.evaluate import TemporalEvaluator
 from tcs_tpu_torch.models import CameraParams, TCStereo, TemporalState
 from tools.convert_torch_ckpt import convert_state_dict
 
+# The test processes share the host: two intra-op threads each, so that
+# several workers do not oversubscribe its cores.
+torch.set_num_threads(2)
+
 B, H, W, ITERS = 1, 64, 96, 2
 FLOW_TOL = 5e-2  # px: the bound tests/test_parity.py holds tcs_tpu to against the reference
 STATE_TOL = 1e-3  # hidden states (tanh range) and matching features

@@ -21,6 +21,10 @@ from tcs_tpu_torch.ops import corr as tcorr
 from tcs_tpu_torch.ops import sampler as tsam
 from tcs_tpu_torch.ops import splat as tsplat
 
+# The test processes share the host: two intra-op threads each, so that
+# several workers do not oversubscribe its cores.
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 
 
@@ -198,6 +202,65 @@ def test_splat(rng, C):
                              mode="soft-clipeps", valid_mask=jnp.asarray(valid))
     for a, b in zip(out_t, out_j):
         _close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def _splat_case(rng, case, C, B=2, H=12, W=16):
+    """values with magnitudes from 1e-4 to 1e4, and a flow of one kind."""
+    v = (rng.normal(size=(B, H, W, C)) * 10.0 ** rng.uniform(-4, 4, size=(B, H, W, 1)))
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    noise = rng.uniform(0, 1, size=(B, H, W, 2))
+    if case == "collisions":  # eight columns collapse onto one: ~16 taps a cell
+        flow = np.stack([-(xs % 8) + 0.25 * noise[..., 0],
+                         rng.normal(scale=0.7, size=(B, H, W))], -1)
+    elif case == "one_cell":  # every source of an image to one point: buckets of H·W
+        flow = np.broadcast_to(np.stack([5.3 - xs, 7.6 - ys], -1), (B, H, W, 2))
+    elif case == "integer":  # integer targets: the +1 taps weigh 0
+        flow = np.round(rng.normal(scale=2.0, size=(B, H, W, 2)))
+    else:  # non-finite flow in image 0, every target out of image 1
+        flow = rng.normal(scale=2.0, size=(B, H, W, 2))
+        flow[0, :, :3, 0] = -40.0
+        flow[0, 3, 4, 0], flow[0, 5, 6, 1], flow[0, 7, 8, 0] = np.nan, np.inf, -np.inf
+        flow[1] = [1e3, 0.5]
+    return v.astype(np.float32), flow.astype(np.float32)
+
+
+def _splat_serial(v, flow):
+    """Each target cell's sum in (tap, source index) order, one fp32 product
+    rounded before each fp32 add: the order the CUDA kernel reproduces."""
+    B, H, W, C = v.shape
+    out = np.zeros((B * H * W, C), np.float32)
+    src, fl = v.reshape(-1, C), flow.reshape(-1, 2)
+    one = np.float32(1.0)
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        for s in range(B * H * W):
+            b, y, x = s // (H * W), s // W % H, s % W
+            tx, ty = np.float32(x) + fl[s, 0], np.float32(y) + fl[s, 1]
+            if not (np.isfinite(tx) and np.isfinite(ty)):
+                continue
+            xi, yi = np.floor(tx) + np.float32(dx), np.floor(ty) + np.float32(dy)
+            if 0 <= xi <= W - 1 and 0 <= yi <= H - 1:
+                w = (one - abs(tx - xi)) * (one - abs(ty - yi))
+                t = b * H * W + int(yi) * W + int(xi)
+                out[t] = out[t] + src[s] * w
+    return out.reshape(B, H, W, C)
+
+
+@pytest.mark.parametrize("C", [1, 5, 258])
+@pytest.mark.parametrize("case", ["collisions", "one_cell", "integer", "nonfinite_out"])
+def test_splat_sum_plain_bit_exact(rng, case, C):
+    """``splat_sum_plain`` equals ``tcs_tpu``'s ``splat_sum`` and a serial
+    (tap, source)-ordered fp32 sum bit for bit: the order the kernel keeps."""
+    v, flow = _splat_case(rng, case, C)
+    with np.errstate(invalid="ignore"):
+        serial = _splat_serial(v, flow)
+    out = tsplat.splat_sum_plain(torch.from_numpy(v), torch.from_numpy(flow))
+    ref = np.array(jsplat.splat_sum(jnp.asarray(v), jnp.asarray(flow)))
+    assert torch.equal(out, torch.from_numpy(ref))
+    assert torch.equal(out, torch.from_numpy(serial))
+    if case == "one_cell":
+        assert int((out[0, ..., 0] != 0).sum()) == 4  # four buckets of 192 keys
+    if case == "nonfinite_out":
+        assert not out[1].any()
 
 
 def test_cpu_wrappers_run_plain_and_count_nothing(rng):

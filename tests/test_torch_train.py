@@ -76,6 +76,10 @@ from tcs_tpu_torch.train import (
 )
 from tools.convert_torch_ckpt import convert_state_dict
 
+# The test processes share the host: two intra-op threads each, so that
+# several workers do not oversubscribe its cores.
+torch.set_num_threads(2)
+
 B, H, W, ITERS, FRAMES = 1, 64, 96, 2, 2
 FLOW_TOL, FIELD_TOL = 5e-2, 1e-3
 LOSS_RTOL = 1e-3
