@@ -8,13 +8,17 @@ Phases, in order; any failure exits non-zero:
 2. kernel checks: each kernel against its plain PyTorch version on the card,
    with times (CUDA events; the L2 warm, and cold after a 128 MB write), the
    card's launch floor, bounds and library yardsticks: both lookup kernels at
-   the inference path's shapes (batch 1, 96×320 grid) and at the training
-   path's (batch 4, 80×180 grid) for fp32 and bf16 pyramids, with non-finite
-   and far-out coordinates; the splat at both shapes and under collapsing
-   columns, bit for bit against its plain version on the CPU and launch
-   against launch; its backward at the training path's;
+   the inference path's shapes (batch 1, 96×320 grid), the training path's
+   (batch 4, 80×180 grid) and the evaluators' (batch 1; 120×160, 136×240 and
+   96×312 grids) for fp32 and bf16 pyramids, with non-finite and far-out
+   coordinates; the splat at all five shapes and under collapsing columns,
+   bit for bit against its plain version on the CPU and launch against
+   launch; its backward at the training path's;
 3. small-model parity: the fp32 config at 64×96 for 3 frames, on the card
-   with the kernels and on the CPU with the plain versions, same weights;
+   with the kernels and on the CPU with the plain versions, same weights, for
+   the default architecture and three variants that together touch every
+   one (group and instance context norms with the non-shared backbone and
+   the slow-fast GRUs; batch norm on the shared backbone);
 4. main path: ``TemporalEvaluator`` over the default config (bf16 conv
    stacks, bf16 pyramid) at 384×1280, iters 5, 12 frames with a moving pose,
    with the kernels' launch counts read around it;
@@ -29,7 +33,15 @@ Phases, in order; any failure exits non-zero:
 7. training path: ``make_train_step`` over the default config at the
    SceneFlow recipe's shapes (batch 4, 320×720, 2 frames, 5 iterations) on a
    synthetic batch from a seed: 1 warm-up step and 3 timed steps, with the
-   launch counts read around them.
+   launch counts read around them;
+8. the evaluators: ``validate_tartanair``, ``validate_temporal_things`` and
+   ``submit_kitti`` (submission PNG, then pseudo-colour frames) over the
+   default config at each dataset's frame size (480×640, 540×960,
+   375×1242), iters 5, on trees fabricated from a seed; ms/frame over the
+   call and over the frames after the first, the first frame's time, and the
+   kernels' launches around each; each held against a direct drive of the
+   same frames through ``TemporalEvaluator``, the card against the CPU at
+   64×96, and the evaluation CLI in a subprocess against the in-process run.
 
 The last line of standard output is the JSON device record. Run from the
 repository root: ``python chip_smoke.py``.
@@ -76,6 +88,15 @@ SMALL_GRAD_RTOL = 1e-3
 SMALL_GRAD_RTOL_FREE = 3e-2
 SMALL_GRAD_LEAVES = ("cnet.conv1.weight", "update_block.gru08.convzr.weight",
                      "disp_completor.conv_disp_stem.0.weight", "disp_refine.mask.2.weight")
+
+# Phase 8, by dataset: (fabricator, its keyword arguments, sequences, frames each).
+EVAL_ITERS = 5
+EVAL_TREES = {
+    "TartanAir": ("tartanair_tree", dict(frames=6, height=480, width=640), 2, 6),
+    "things": ("things_tree", dict(frames=10, height=540, width=960), 1, 10),
+    "kitti": ("kitti_tree", dict(frames=11, height=375, width=1242), 1, 11),
+}
+EVAL_DIRECT_TOL = 1e-3  # px: evaluator against a direct drive of the same frames, same card
 
 
 def fail(msg: str) -> None:
@@ -395,7 +416,7 @@ def _collision_flow(B, h, w, g, dev):
 
 
 def splat_records(rate: float, g: torch.Generator, exact: bool = True) -> tuple:
-    """The splat forward against its plain version at both paths' shapes,
+    """The splat forward against its plain version at every path's shapes,
     (B, h, w, 258) fp32 with out-of-image and non-finite targets, and at the
     inference path's shape under collapsing columns: records by (kernel,
     shape, type). The values and flows are returned beside them."""
@@ -414,9 +435,13 @@ def splat_records(rate: float, g: torch.Generator, exact: bool = True) -> tuple:
     return records, inputs
 
 
-# Grid of the lookup on each path: (batch, h, w) at a quarter of the image.
+# Grid of the lookup and the splat on each path: (batch, h, w) at a quarter of
+# the image, padded to /32 as the model pads it; the evaluators' at each
+# dataset's frame size (KITTI's top pyramid level is 39 wide, an odd width).
 LOOKUP_SHAPES = {"inference": (1, MAIN_H // 4, MAIN_W // 4),
-                 "training": (TRAIN_B, TRAIN_H // 4, TRAIN_W // 4)}
+                 "training": (TRAIN_B, TRAIN_H // 4, TRAIN_W // 4),
+                 **{f"evaluation {name}": (1, -(-kw["height"] // 32) * 8, -(-kw["width"] // 32) * 8)
+                    for name, (_, kw, _, _) in EVAL_TREES.items()}}
 LOOKUP_LEVELS, LOOKUP_RADIUS = 4, 4
 
 
@@ -436,8 +461,8 @@ def lookup_inputs(shape: str, g: torch.Generator):
 
 
 def lookup_records(rate: float, g: torch.Generator) -> dict:
-    """Both lookup kernels against their plain versions at both paths' shapes,
-    fp32 and bf16 pyramids: records by (kernel, shape, type)."""
+    """Both lookup kernels against their plain versions at every path's
+    shapes, fp32 and bf16 pyramids: records by (kernel, shape, type)."""
     records = {}
     for shape, (B, h, w) in LOOKUP_SHAPES.items():
         pyr32, coords, gout = lookup_inputs(shape, g)
@@ -450,11 +475,10 @@ def lookup_records(rate: float, g: torch.Generator) -> dict:
 
 
 def phase_kernels(rate: float) -> dict:
-    """Every kernel against its plain version: both lookup kernels at the
-    inference path's shapes (batch 1, 96×320 grid) and at the training
-    path's (batch 4, 80×180), the splat at both and under collapsing
-    columns, its backward at the training path's. Records by (kernel, shape,
-    type)."""
+    """Every kernel against its plain version: both lookup kernels and the
+    splat at each path's shapes (``LOOKUP_SHAPES``), the splat also under
+    collapsing columns, its backward at the training path's. Records by
+    (kernel, shape, type)."""
     from tcs_tpu_torch.ops import splat
 
     dev = torch.device("cuda")
@@ -545,31 +569,42 @@ def _pose(k: int) -> np.ndarray:
     return T
 
 
+SMALL_VARIANTS = {
+    "default": {},
+    "group-fnet-slowfast": dict(context_norm="group", shared_backbone=False,
+                                slow_fast_gru=True),
+    "batch-shared": dict(context_norm="batch"),
+    "instance-fnet-slowfast": dict(context_norm="instance", shared_backbone=False,
+                                   slow_fast_gru=True),
+}
+
+
 def phase_small_parity() -> None:
     from tcs_tpu_torch import ModelConfig
     from tcs_tpu_torch.models import TCStereo, TemporalState
 
-    cfg = ModelConfig(mixed_precision=False, corr_dtype="float32")
     rng = np.random.default_rng(1)
     frames = rng.uniform(0, 255, (SMALL_FRAMES, 2, 1, SMALL_H, SMALL_W, 3)).astype(np.float32)
-    flows = {}
-    with tf32_off():
-        for dev in ("cuda", "cpu"):
-            model = TCStereo(cfg, device=dev, seed=1)
-            state = TemporalState.zeros(1, SMALL_H, SMALL_W, cfg, device=dev)
-            cam = _camera(1, SMALL_H, SMALL_W, dev)
-            flows[dev] = []
-            for k in range(SMALL_FRAMES):
-                out = model(torch.from_numpy(frames[k, 0]).to(dev),
-                            torch.from_numpy(frames[k, 1]).to(dev), state, cam,
-                            torch.from_numpy(_pose(k))[None].to(dev), iters=SMALL_ITERS)
-                state = out.new_state
-                flows[dev].append(out.flow.cpu())
-    for k in range(SMALL_FRAMES):
-        d = (flows["cuda"][k] - flows["cpu"][k]).abs().max().item()
-        print(f"small parity frame {k}: max|dflow| = {d:.3e} (tol {FLOW_TOL})")
-        if not d <= FLOW_TOL:
-            fail(f"small-model GPU/CPU parity, frame {k}: {d}")
+    for name, variant in SMALL_VARIANTS.items():
+        cfg = ModelConfig(mixed_precision=False, corr_dtype="float32", **variant)
+        flows = {}
+        with tf32_off():
+            for dev in ("cuda", "cpu"):
+                model = TCStereo(cfg, device=dev, seed=1)
+                state = TemporalState.zeros(1, SMALL_H, SMALL_W, cfg, device=dev)
+                cam = _camera(1, SMALL_H, SMALL_W, dev)
+                flows[dev] = []
+                for k in range(SMALL_FRAMES):
+                    out = model(torch.from_numpy(frames[k, 0]).to(dev),
+                                torch.from_numpy(frames[k, 1]).to(dev), state, cam,
+                                torch.from_numpy(_pose(k))[None].to(dev), iters=SMALL_ITERS)
+                    state = out.new_state
+                    flows[dev].append(out.flow.cpu())
+        for k in range(SMALL_FRAMES):
+            d = (flows["cuda"][k] - flows["cpu"][k]).abs().max().item()
+            print(f"small parity [{name}] frame {k}: max|dflow| = {d:.3e} (tol {FLOW_TOL})")
+            if not d <= FLOW_TOL:
+                fail(f"small-model GPU/CPU parity [{name}], frame {k}: {d}")
 
 
 def phase_main_path(smi: str):
@@ -817,6 +852,252 @@ def phase_training_path(smi: str) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def recorded_disparities():
+    """Keeps every disparity ``TemporalEvaluator`` returns, one (H, W) array
+    per frame, in the first list this yields, and the host clock's
+    (start, end) of each call in the second. The call returns numpy, so at
+    its end the device has finished the frame."""
+    from tcs_tpu_torch.evaluate import TemporalEvaluator
+
+    call, store, spans = TemporalEvaluator.__call__, [], []
+
+    def recording(self, *args):
+        t0 = time.perf_counter()
+        out = call(self, *args)
+        spans.append((t0, time.perf_counter()))
+        store.append(out)
+        return out
+
+    TemporalEvaluator.__call__ = recording
+    try:
+        yield store, spans
+    finally:
+        TemporalEvaluator.__call__ = call
+
+
+def eval_sequences(name: str, root: str) -> list:
+    """(left paths, right paths, ground-truth reader and paths, K, baseline,
+    poses) of each sequence an evaluator reads, through the port's datasets."""
+    from tcs_tpu_torch import evaluate as ev
+    from tcs_tpu_torch.data import frame_utils
+
+    if name in ("TartanAir", "things"):
+        if name == "TartanAir":
+            ds = ev.TartanAir(None, root=root, test_keywords=ev.tartanair_test_keywords(),
+                              is_test=True, mode="temporal")
+            read_gt, K, baseline = (lambda p: frame_utils.readDispTartanAir(p)[0],
+                                    ev.TARTANAIR_TEST_K, 0.25)
+        else:
+            ds = ev.SceneFlowDatasets(None, root=root, things_test=True, mode="temporal")
+            read_gt, K, baseline = frame_utils.read_gen, ev.SCENEFLOW_TEST_K, 1.0
+        return [(left, right, read_gt, gts, K, baseline, poses)
+                for left, right, gts, poses in map(ds.test_sequence, range(len(ds)))]
+    ds = ev.KITTI(None, root=os.path.join(root, "KITTI"), is_test=True, mode="temporal",
+                  image_set="kitti_seq/kitti2015_testings", index_by_scene=True)
+    out = []
+    for i in range(len(ds)):
+        left, right, scene, poses = ds.test_sequence(i)
+        calib = frame_utils.read_calib_file(os.path.join(scene, os.path.basename(scene) + ".txt"))
+        out.append((left, right, None, [], frame_utils.intrinsics_from_p_rect(
+            calib["P_rect_02"]), 0.54, poses))
+    return out
+
+
+def direct_drive(model, cfg, seqs, iters, device) -> list:
+    """Every frame of ``seqs`` through ``TemporalEvaluator``, reset at each
+    sequence: per sequence the list of (disparity, ground truth or None)."""
+    from tcs_tpu_torch.data import frame_utils
+    from tcs_tpu_torch.evaluate import TemporalEvaluator
+
+    ev = TemporalEvaluator(model, cfg, iters, device=device)
+    out = []
+    for left, right, read_gt, gts, K, baseline, poses in seqs:
+        ev.reset()
+        out.append([])
+        for j, (p1, p2, T) in enumerate(zip(left, right, poses)):
+            disp = ev(frame_utils.read_image(p1).astype(np.float32),
+                      frame_utils.read_image(p2).astype(np.float32), K, baseline,
+                      np.asarray(T, np.float32))
+            out[-1].append((disp, read_gt(gts[j]) if gts else None))
+    return out
+
+
+def pooled_metrics(frames, prefix: str, temporal: bool) -> dict:
+    """The evaluators' metrics recomputed with numpy in pooled form: D1/D3 as
+    bad pixels over valid pixels across all frames (which the valid-rate
+    weighting of ``tcs_tpu`` equals for frames of one size), EPE as the mean
+    of the frames' means, the temporal pairs of consecutive frames."""
+    epes, bad1, bad3, valid, tc = [], 0, 0, 0, []
+    for seq in frames:
+        for j, (disp, gt) in enumerate(seq):
+            ok = np.abs(gt) < 192.0
+            err = np.abs(disp - gt)
+            epes.append(err[ok].mean())
+            bad1, bad3, valid = bad1 + (err[ok] > 1).sum(), bad3 + (err[ok] > 3).sum(), valid + ok.sum()
+            if temporal and j:
+                pd, pg = seq[j - 1]
+                both = ok & (np.abs(pg) < 192.0)
+                dd = (disp - pd) - (gt - pg)
+                de = err - np.abs(pd - pg)
+                tc.append(((np.abs(dd) > 3)[both].mean(), (de > 3)[both].mean()))
+    out = {f"{prefix}-epe": float(np.mean(epes)), f"{prefix}-d1": 100.0 * bad1 / valid,
+           f"{prefix}-d3": 100.0 * bad3 / valid}
+    if tc:
+        out[f"{prefix}-tc-dd3"] = 100.0 * float(np.mean([t[0] for t in tc]))
+        out[f"{prefix}-tc-de3"] = 100.0 * float(np.mean([t[1] for t in tc]))
+    return out
+
+
+METRIC_ROUNDING = 1e-9  # two float64 formulas of one metric (pooled or weighted) part by ~1e-14
+
+
+def hold_metrics(tag: str, got: dict, want: dict, bounds: dict) -> None:
+    """``got`` against ``want``, metric by metric, within ``bounds`` (from
+    ``evaluate.metric_bounds``) plus ``METRIC_ROUNDING``."""
+    if got.keys() != want.keys() or got.keys() != bounds.keys():
+        fail(f"{tag}: metric keys {sorted(got)} against {sorted(want)}")
+    for k in got:
+        d = abs(got[k] - want[k])
+        print(f"{tag}: {k} {got[k]:.6f} against {want[k]:.6f}, |d| {d:.3e} "
+              f"(bound {bounds[k]:.3e})")
+        if not np.isfinite(got[k]) or not d <= bounds[k] + METRIC_ROUNDING:
+            fail(f"{tag}: {k} {got[k]} against {want[k]}, bound {bounds[k]}")
+
+
+def phase_evaluators(smi: str) -> dict:
+    """The three evaluators at full width and their datasets' frame sizes;
+    returns the launch counts of the four evaluator calls, summed."""
+    import tempfile
+
+    from tcs_tpu_torch import ModelConfig
+    from tcs_tpu_torch import evaluate as ev
+    from tcs_tpu_torch.data import fabricate, frame_utils
+    from tcs_tpu_torch.models import TCStereo
+    from tcs_tpu_torch.ops import _kernels
+    from tcs_tpu_torch.utils.checkpoint import save_weights
+
+    os.makedirs("runs", exist_ok=True)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="eval_trees_", dir="runs")
+    root = tmp_dir.name
+    t0 = time.perf_counter()
+    for seed, (name, (fab, kw, n_seq, _)) in enumerate(EVAL_TREES.items()):
+        if name == "TartanAir":
+            kw = dict(kw, sequences=(("gascola", "Easy", "P001"), ("hospital", "Hard", "P042")))
+        getattr(fabricate, fab)(root, seed=seed, **kw)
+    small, small_n = os.path.join(root, "small"), 6  # frames of each small sequence
+    fabricate.tartanair_tree(small, frames=small_n, height=SMALL_H, width=SMALL_W, seed=7)
+    print(f"evaluators: trees written in {time.perf_counter() - t0:.2f} s")
+
+    cfg = ModelConfig()  # mixed precision, bf16 pyramid
+    model = TCStereo(cfg, seed=0)
+    out_dir = os.path.join(root, "kitti_out")
+    calls = {
+        "TartanAir": (ev.validate_tartanair, dict(root=root)),
+        "things": (ev.validate_temporal_things, dict(root=root)),
+        "kitti": (ev.submit_kitti, dict(root=os.path.join(root, "KITTI"), out_dir=out_dir)),
+        "kitti video": (ev.submit_kitti, dict(root=os.path.join(root, "KITTI"),
+                                              out_dir=out_dir, submission=False)),
+    }
+    total = dict.fromkeys(_kernels.launches, 0)
+    results, recorded = {}, {}
+    for name, (fn, kw) in calls.items():
+        _, _, n_seq, n_frames = EVAL_TREES[name.split()[0]]
+        frames = n_seq * n_frames
+        with recorded_disparities() as (disps, spans):
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            results[name] = fn(model, cfg, iters=EVAL_ITERS, **kw)
+            t1 = time.perf_counter()
+            counts = dict(_kernels.launches)
+        recorded[name] = disps
+        want = {"corr_lookup": frames * EVAL_ITERS, "corr_lookup_bwd": 0,
+                "splat_sum": frames - n_seq, "splat_sum_bwd": 0}
+        print(f"evaluator {name}: {json.dumps(results[name])}")
+        # The first frame of a call pays for its shape once (the allocator's
+        # pools, cuDNN's choice of algorithms); a run over a dataset's
+        # hundreds of frames spreads that over all of them.
+        model_ms = [1e3 * (b - a) for a, b in spans]
+        steady = 1e3 * (t1 - spans[0][1]) / (frames - 1)
+        print(f"evaluator {name}: {frames} frames in {t1 - t0:.3f} s, "
+              f"{1e3 * (t1 - t0) / frames:.3f} ms/frame over the call; steady "
+              f"{steady:.3f} ms/frame over frames 2-{frames} (from the end of the first "
+              f"frame's model call to the end of the call); files read and written "
+              f"included; on {smi}")
+        print(f"evaluator {name}: model call per frame (TemporalEvaluator, no file "
+              f"reads): first {model_ms[0]:.3f} ms, then median "
+              f"{float(np.median(model_ms[1:])):.3f} ms, all {[round(t, 3) for t in model_ms]}")
+        print(f"evaluator {name}: launches {counts} expected {want}")
+        if counts != want or len(disps) != frames:
+            fail(f"evaluator {name}: launches {counts} against {want}, {len(disps)} frames")
+        for k in total:
+            total[k] += counts[k]
+        if not all(np.isfinite(d).all() and d.min() >= 0 for d in disps):
+            fail(f"evaluator {name}: a disparity is not finite or negative")
+    print(f"evaluator kitti: kitti-fps {results['kitti']['kitti-fps']} (tcs_tpu's rule: only "
+          f"frames after the 7th of scenes after the 51st are timed, so one scene gives 0.0)")
+    video = sorted(os.listdir(os.path.join(out_dir, "video", "000000")))
+    if video != [f"{i:06d}.png" for i in range(11)]:
+        fail(f"submit_kitti(submission=False) wrote {video}")
+
+    # Each evaluator against a direct drive of the same frames, same card.
+    direct = {}
+    for name, prefix in (("TartanAir", "TartanAir"), ("things", "things"), ("kitti", None)):
+        seqs = eval_sequences(name, root)
+        direct[name] = direct_drive(model, cfg, seqs, EVAL_ITERS, "cuda")
+        mine = [d for seq in direct[name] for d, _ in seq]
+        err = max(np.abs(a - b).max() for a, b in zip(recorded[name], mine))
+        print(f"evaluator {name} against a direct drive: max|d disparity| = {err:.3e} px "
+              f"(tol {EVAL_DIRECT_TOL})")
+        if len(mine) != len(recorded[name]) or not err <= EVAL_DIRECT_TOL:
+            fail(f"evaluator {name} against a direct drive: {err}")
+        if prefix:
+            temporal = name == "TartanAir"
+            hold_metrics(f"evaluator {name} against numpy", results[name],
+                         pooled_metrics(direct[name], prefix, temporal),
+                         ev.metric_bounds(direct[name], EVAL_DIRECT_TOL, prefix, temporal))
+    png10 = frame_utils.read_uint16_png(os.path.join(out_dir, "disp_0", "000000_10.png"))
+    lsb = np.abs(png10.astype(np.int64) - (direct["kitti"][0][10][0] * 256.0).astype(np.uint16))
+    print(f"submit_kitti 000000_10.png against the direct drive's frame 10 x256: "
+          f"max {lsb.max()} LSB (tol 1)")
+    kitti_size = EVAL_TREES["kitti"][1]["height"], EVAL_TREES["kitti"][1]["width"]
+    if png10.shape != kitti_size or lsb.max() > 1:
+        fail(f"submit_kitti's PNG: shape {png10.shape}, {lsb.max()} LSB off")
+
+    # The card against the CPU at 64x96, fp32, same weights.
+    scfg = ModelConfig(mixed_precision=False, corr_dtype="float32")
+    small_res, small_frames = {}, {}
+    with tf32_off():
+        for dev in ("cuda", "cpu"):
+            with recorded_disparities() as (disps, _):
+                small_res[dev] = ev.validate_tartanair(TCStereo(scfg, device=dev, seed=3), scfg,
+                                                       iters=SMALL_ITERS, root=small, device=dev)
+            small_frames[dev] = [[(d, frame_utils.readDispTartanAir(p)[0]) for d, p in
+                                  zip(disps[small_n * i:small_n * (i + 1)], seq[3])]
+                                 for i, seq in enumerate(eval_sequences("TartanAir", small))]
+    hold_metrics("validate_tartanair 64x96, card against CPU", small_res["cuda"],
+                 small_res["cpu"], ev.metric_bounds(small_frames["cpu"], FLOW_TOL, "TartanAir"))
+
+    # The CLI in a subprocess, on the weights saved in the reference's format.
+    pth = os.path.join(root, "w.pth")
+    save_weights(model, pth)
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "tcs_tpu_torch.cli.evaluate", "--dataset",
+                          "TartanAir", "--data_root", root, "--restore_ckpt", pth,
+                          "--valid_iters", str(EVAL_ITERS)],
+                         capture_output=True, text=True, timeout=600)
+    print(f"evaluation CLI: exit {cli.returncode} in {time.perf_counter() - t0:.2f} s; "
+          f"its standard output:\n{cli.stdout.strip()}")
+    if cli.returncode != 0:
+        fail(f"the evaluation CLI exited {cli.returncode}:\n{cli.stderr[-4000:]}")
+    hold_metrics("evaluation CLI against the in-process run",
+                 json.loads(cli.stdout.strip().splitlines()[-1]), results["TartanAir"],
+                 ev.metric_bounds(direct["TartanAir"], EVAL_DIRECT_TOL, "TartanAir"))
+    tmp_dir.cleanup()
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -828,13 +1109,15 @@ def main() -> None:
     paths = {"inference": phase_main_path(smi), "op_gradients": phase_op_gradients()}
     phase_small_gradient_parity()
     paths["training"] = phase_training_path(smi)
+    paths["evaluation"] = phase_evaluators(smi)
     # `launches` sums the driven paths, each of which set the counts to 0
     # before it and read them after. The times and the bound are at the
     # shapes of the path that launches the kernel most, in the type it runs
     # there: the inference path's for the forward kernels, the training
     # path's for the backward ones; bf16 pyramids, fp32 splat payloads. The
-    # forward kernels' numbers at the training path's shapes stand beside
-    # them, and `max_abs_err` is the largest over every shape and type checked.
+    # forward kernels' numbers at the training path's and the evaluators'
+    # shapes stand beside them, and `max_abs_err` is the largest over every
+    # shape and type checked.
     sources = {
         "corr_lookup": ("corr_lookup.cu", "tcs_tpu/ops/pallas/corr_kernel.py:76", "bfloat16"),
         "corr_lookup_bwd": ("corr_lookup_bwd.cu", "tcs_tpu/ops/corr.py:341", "bfloat16"),
@@ -854,6 +1137,9 @@ def main() -> None:
             bound_by="bytes", **{k: rec[name, shape, dtype].get(k) for k in keys})
         if shape == "inference":
             entry["at_training_shapes"] = {k: rec[name, "training", dtype].get(k) for k in keys}
+            entry["at_evaluation_shapes"] = {
+                sh: {k: rec[name, sh, dtype].get(k) for k in keys}
+                for sh in LOOKUP_SHAPES if sh.startswith("evaluation")}
         if name.startswith("splat"):  # over every shape checked
             for k in ("deterministic", "bit_exact"):
                 entry[k] = all(r[k] for r in mine.values())

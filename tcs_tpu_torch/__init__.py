@@ -1,8 +1,10 @@
 """tcs_tpu_torch: the PyTorch/CUDA port of tcs_tpu for NVIDIA Hopper (H100).
 
-Streaming temporal TCStereo inference and the frame-window training step,
-with hand-written CUDA kernels for the correlation-pyramid lookup and the
-softmax splat and for their backward passes. The package imports
+Streaming temporal TCStereo inference, the frame-window training step and
+the three temporal evaluators with their data readers, for every
+architecture variant of the reference, with hand-written CUDA kernels for
+the correlation-pyramid lookup and the softmax splat and for their backward
+passes. The package imports
 ``torch`` and ``numpy`` only; the JAX package beside it is its reference.
 """
 

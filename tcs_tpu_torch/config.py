@@ -14,6 +14,9 @@ import dataclasses
 from typing import Tuple
 
 
+CONTEXT_NORMS = ("group", "batch", "instance", "none")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters."""
@@ -24,9 +27,9 @@ class ModelConfig:
     corr_radius: int = 4
     n_downsample: int = 2  # disparity field lives at 1/2**n_downsample resolution
     n_gru_layers: int = 3
-    context_norm: str = "none"  # only 'none' is ported so far
-    shared_backbone: bool = True  # only the shared backbone is ported so far
-    slow_fast_gru: bool = False  # no launch script enables it; not ported yet
+    context_norm: str = "none"  # {'group', 'batch', 'instance', 'none'}
+    shared_backbone: bool = True  # False: a separate BasicEncoder as fnet
+    slow_fast_gru: bool = False  # coarse GRUs iterate ahead of each update
     mixed_precision: bool = True  # bf16 conv stacks, fp32 correlation/geometry
     # Threshold of the cost-volume contrastive loss (``--init_thres``).
     init_thres: float = 0.5
@@ -46,11 +49,9 @@ class ModelConfig:
             raise ValueError(
                 f"n_gru_layers={self.n_gru_layers}: the TC-Stereo"
                 " architecture requires exactly 3 GRU/context scales")
-        if self.context_norm != "none" or not self.shared_backbone \
-                or self.slow_fast_gru:
-            raise NotImplementedError(
-                "the PyTorch port covers context_norm='none' with the shared"
-                " backbone and slow_fast_gru=False")
+        if self.context_norm not in CONTEXT_NORMS:
+            raise ValueError(f"context_norm={self.context_norm!r}: one of"
+                             f" {CONTEXT_NORMS} (reference train_stereo.py:484)")
 
     @property
     def scale_rate(self) -> float:

@@ -3,7 +3,7 @@
 Mixed precision follows the JAX package with explicit casts, not autocast:
 parameters stay fp32 and every convolution casts its input, weight and bias
 to the module's ``compute_dtype`` (bf16 under ``mixed_precision``), as a Flax
-``nn.Conv(dtype=...)`` does. Instance norm takes its statistics in fp32.
+``nn.Conv(dtype=...)`` does. Every norm takes its statistics in fp32.
 
 Module and parameter names follow the reference torch model, so its state
 dicts load with ``strict=True``.
@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tcs_tpu_torch.config import CONTEXT_NORMS
 from tcs_tpu_torch.ops.sampler import resize_nearest_nchw
 
 
@@ -64,6 +65,55 @@ class InstanceNorm(nn.Module):
         return instance_norm(x)
 
 
+class GroupNorm(nn.Module):
+    """torch ``GroupNorm`` with C/8 groups, eps 1e-5, affine; statistics in
+    fp32 (``tcs_tpu.models.layers.GroupNorm``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.num_groups = channels // 8
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            1e-5).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation from the statistics of the current batch, always,
+    with affine parameters and no running buffers
+    (``tcs_tpu.models.layers.BatchNorm``, ``layers.py:73-98``).
+
+    ``nn.BatchNorm2d`` would read running averages in ``eval()``, which
+    ``tcs_tpu`` never does, so test mode would compute another function.
+    Statistics in fp32, biased variance, eps 1e-5.
+    """
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return F.batch_norm(x.float(), None, None, self.weight, self.bias,
+                            training=True, momentum=0.0, eps=1e-5).to(x.dtype)
+
+
+def make_norm(norm_fn: str, channels: int) -> nn.Module:
+    """The reference's ``norm_fn`` dispatch (``tcs_tpu.models.layers.Norm``).
+    ``'none'`` is ``nn.Identity``: no parameters and no launch."""
+    if norm_fn == "none":
+        return nn.Identity()
+    if norm_fn == "instance":
+        return InstanceNorm()
+    if norm_fn == "group":
+        return GroupNorm(channels)
+    if norm_fn == "batch":
+        return BatchNorm(channels)
+    raise ValueError(f"unknown norm_fn {norm_fn!r}: one of {CONTEXT_NORMS}")
+
+
 def conv_seq(specs, final_relu: bool = False) -> nn.Sequential:
     """conv → relu → conv ladder, laid out as the reference's ``nn.Sequential``
     (a conv at every even index). specs: (in, out, kernel, stride, padding)."""
@@ -76,31 +126,31 @@ def conv_seq(specs, final_relu: bool = False) -> nn.Sequential:
 
 
 class ResidualBlock(nn.Module):
-    """Two 3×3 convs + residual (reference ``core/extractor.py:5``).
+    """Two 3×3 convs + norm + residual (reference ``core/extractor.py:5``).
 
-    ``norm_fn`` is 'none' or 'instance'; neither has parameters.
+    ``norm3`` sits on the downsample branch, registered under both names as
+    in the reference (``norm3`` and ``downsample.1``), so a reference state
+    dict loads as it is.
     """
 
     def __init__(self, in_planes: int, planes: int, norm_fn: str = "none",
                  stride: int = 1):
         super().__init__()
-        if norm_fn not in ("none", "instance"):
-            raise NotImplementedError(f"norm_fn={norm_fn!r} is not ported")
-        self.norm_fn = norm_fn
         self.conv1 = Conv(in_planes, planes, 3, stride, 1)
         self.conv2 = Conv(planes, planes, 3, 1, 1)
+        self.norm1 = make_norm(norm_fn, planes)
+        self.norm2 = make_norm(norm_fn, planes)
         self.downsample = None
         if not (stride == 1 and in_planes == planes):
-            self.downsample = nn.Sequential(Conv(in_planes, planes, 1, stride, 0))
-
-    def _norm(self, x):
-        return instance_norm(x) if self.norm_fn == "instance" else x
+            self.norm3 = make_norm(norm_fn, planes)
+            self.downsample = nn.Sequential(Conv(in_planes, planes, 1, stride, 0),
+                                            self.norm3)
 
     def forward(self, x):
-        y = F.relu(self._norm(self.conv1(x)))
-        y = F.relu(self._norm(self.conv2(y)))
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = F.relu(self.norm2(self.conv2(y)))
         if self.downsample is not None:
-            x = self._norm(self.downsample(x))
+            x = self.downsample(x)
         return F.relu(x.to(y.dtype) + y)
 
 

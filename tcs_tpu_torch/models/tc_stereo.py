@@ -3,14 +3,17 @@
 One call is one frame, of streaming temporal inference in test mode or of a
 training window in train mode:
 
-1. the shared-backbone encoder on both images, batch-stacked;
+1. the encoders: on the shared backbone the trunk on both images,
+   batch-stacked, and the matching head on it; otherwise the context encoder
+   on image 1 and ``BasicEncoder`` on both images, batch-stacked;
 2. the fp32 cosine cost volume and its pyramid, stored in ``corr_dtype``;
 3. the disparity initialisation: on the first frame of a sequence the
    cost-volume argmax bootstrap, on later frames the forward softmax splat
    of the previous disparity and features along the pose-induced flow, plus
    the bilinear back-warp of the previous hidden states;
 4. ``iters`` GRU / dual-space refinement iterations, each with one radius
-   lookup across the pyramid;
+   lookup across the pyramid (with ``slow_fast_gru`` the coarse GRUs run two
+   pre-passes ahead of each update);
 5. convex upsampling: of the last iteration in test mode, of every
    iteration (folded into the batch) in train mode, which also returns the
    per-iteration predictions, the upsampled initialisations and the masked
@@ -38,7 +41,11 @@ import torch.nn.functional as F
 from tcs_tpu_torch import device as device_lib
 from tcs_tpu_torch import geometry
 from tcs_tpu_torch.config import ModelConfig
-from tcs_tpu_torch.models.extractor import MultiBasicEncoder, SharedBackboneHead
+from tcs_tpu_torch.models.extractor import (
+    BasicEncoder,
+    MultiBasicEncoder,
+    SharedBackboneHead,
+)
 from tcs_tpu_torch.models.layers import Conv, ConvTranspose, set_compute_dtype
 from tcs_tpu_torch.models.update import (
     BasicMultiUpdateBlock,
@@ -127,7 +134,10 @@ class TCStereo(nn.Module):
         self.cfg = cfg
         hd, cd = cfg.hidden_dims, cfg.context_dims
         self.cnet = MultiBasicEncoder((hd, cd), cfg.context_norm)
-        self.conv2 = SharedBackboneHead()
+        if cfg.shared_backbone:
+            self.conv2 = SharedBackboneHead()
+        else:
+            self.fnet = BasicEncoder(256, "instance", cfg.n_downsample)
         n = cfg.n_gru_layers
         self.context_zqr_convs = nn.ModuleList(
             Conv(cd[i], hd[i] * 3, 3, 1, 1) for i in range(n))
@@ -183,10 +193,14 @@ class TCStereo(nn.Module):
             state, disp_q=state.disp_q.detach(), fmap1=state.fmap1.detach(),
             net_list=tuple(n.detach() for n in state.net_list))
 
-        # --- context + matching features, batch-stacked ---
+        # --- context + matching features ---
         img = _c(2.0 * (torch.cat([image1, image2], dim=0) / 255.0) - 1.0)
-        cnet_list, trunk = self.cnet(img, dual_inp=True)
-        fmap = _h(self.conv2(trunk)).float()
+        if cfg.shared_backbone:
+            cnet_list, trunk = self.cnet(img, dual_inp=True)
+            fmap = _h(self.conv2(trunk)).float()
+        else:
+            cnet_list, _ = self.cnet(img[:B], dual_inp=False)
+            fmap = _h(self.fnet(img)).float()
         fmap1, fmap2 = fmap[:B].contiguous(), fmap[B:]
 
         # --- cost volume (fp32) and pyramid (corr_dtype) ---
@@ -251,6 +265,11 @@ class TCStereo(nn.Module):
             disp = disp.detach()
             coords_x = (xs - disp[..., 0]).contiguous()
             corr = corr_ops.lookup(pyramid, coords_x, cfg.corr_radius)
+            if cfg.slow_fast_gru:
+                net_list = self.update_block(net_list, inp_list, iter_fine=False,
+                                             iter_mid=False, update=False)
+                net_list = self.update_block(net_list, inp_list, iter_fine=False,
+                                             update=False)
             net_list, delta_flow = self.update_block(net_list, inp_list, _c(corr),
                                                      _c(-disp), dt)
             disp_q = disp - _h(delta_flow)

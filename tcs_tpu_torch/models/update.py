@@ -137,15 +137,27 @@ class BasicMultiUpdateBlock(nn.Module):
         self.gru32 = ConvGRU(hidden_dims[0], hidden_dims[1])
         self.flow_head = FlowHead(hidden_dims[2], 256, 1)
 
-    def forward(self, net, inp, corr, flow, dtype):
-        """net/inp: NCHW per scale; corr (B,L·(2r+1),h,w); flow (B,1,h,w)."""
+    def forward(self, net, inp, corr=None, flow=None, dtype=None, iter_fine=True,
+                iter_mid=True, iter_coarse=True, update=True):
+        """net/inp: NCHW per scale; corr (B,L·(2r+1),h,w); flow (B,1,h,w).
+
+        ``iter_fine=False`` skips the motion encoder and the fine GRU (corr,
+        flow and dtype are then unused); ``update=False`` returns ``net``
+        alone, without the flow head (the slow-fast pre-passes,
+        ``tcs_tpu/models/update.py:201-225``).
+        """
         net = list(net)
-        net[2] = self.gru32(net[2], *inp[2], pool2x_nchw(net[1]))
-        net[1] = self.gru16(net[1], *inp[1], pool2x_nchw(net[0]),
-                            resize_bilinear_nchw(net[2], net[1].shape[2:]))
-        motion = self.encoder(flow.to(dtype), corr.to(dtype))
-        net[0] = self.gru08(net[0], *inp[0], motion,
-                            resize_bilinear_nchw(net[1], net[0].shape[2:]))
+        if iter_coarse:
+            net[2] = self.gru32(net[2], *inp[2], pool2x_nchw(net[1]))
+        if iter_mid:
+            net[1] = self.gru16(net[1], *inp[1], pool2x_nchw(net[0]),
+                                resize_bilinear_nchw(net[2], net[1].shape[2:]))
+        if iter_fine:
+            motion = self.encoder(flow.to(dtype), corr.to(dtype))
+            net[0] = self.gru08(net[0], *inp[0], motion,
+                                resize_bilinear_nchw(net[1], net[0].shape[2:]))
+        if not update:
+            return tuple(net)
         return tuple(net), self.flow_head(net[0])
 
 

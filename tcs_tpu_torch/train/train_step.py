@@ -151,10 +151,10 @@ def make_train_step(model: TCStereo, cfg: TrainConfig
     :func:`accumulate_window_grads`) and ``"update"`` after the gradient
     norm, the clip, AdamW and the scheduler.
 
-    The model stays in the mode it was built in: the default architecture has
-    no layer with running statistics or dropout (instance norms are computed
-    per sample, ``context_norm='none'``), so ``train()`` and ``eval()`` are
-    the same function; train mode here means ``test_mode=False``.
+    The model stays in the mode it was built in: no architecture has a layer
+    with running statistics or dropout (instance norms are per sample, batch
+    norms always take the batch's statistics), so ``train()`` and ``eval()``
+    are the same function; train mode here means ``test_mode=False``.
     """
     params = [p for p in model.parameters() if p.requires_grad]
     optimizer, scheduler = optim.make_optimizer(params, cfg)

@@ -319,3 +319,22 @@ def test_pool2x_backward_on_a_channel_last_hidden_state(cuda_device):
         x = hidden.to(dev).permute(0, 3, 1, 2).requires_grad_()
         grads.append(torch.autograd.grad(sampler.pool2x_nchw(x), x, cot.to(dev))[0].cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
+
+
+def test_tartanair_evaluator_launches_the_kernels(cuda_device, tmp_path):
+    """``validate_tartanair`` on a fabricated 64×96 tree (2 sequences of 3
+    frames) reaches both forward kernels: one lookup per iteration and one
+    splat per frame after each sequence's first."""
+    from tcs_tpu_torch import ModelConfig
+    from tcs_tpu_torch.data import fabricate
+    from tcs_tpu_torch.evaluate import validate_tartanair
+    from tcs_tpu_torch.models import TCStereo
+
+    fabricate.tartanair_tree(str(tmp_path), frames=3, height=64, width=96)
+    cfg = ModelConfig()
+    _kernels.reset_launches()
+    res = validate_tartanair(TCStereo(cfg, device=cuda_device), cfg, iters=2,
+                             root=str(tmp_path), device=cuda_device)
+    assert dict(_kernels.launches) == {"corr_lookup": 6 * 2, "corr_lookup_bwd": 0,
+                                       "splat_sum": 6 - 2, "splat_sum_bwd": 0}
+    assert len(res) == 5 and all(np.isfinite(v) for v in res.values())
