@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero:
    with times (CUDA events; the L2 warm, and cold after a 128 MB write), the
    card's launch floor, bounds and library yardsticks: both lookup kernels at
    the inference path's shapes (batch 1, 96×320 grid), the training path's
-   (batch 4, 80×180 grid) and the evaluators' (batch 1; 120×160, 136×240 and
+   (batch 4, 80×180 grid), the fl4 recipes' (batch 4; 120×160 TartanAir,
+   80×256 KITTI raw) and the evaluators' (batch 1; 120×160, 136×240 and
    96×312 grids) for fp32 and bf16 pyramids, with non-finite and far-out
-   coordinates; the splat at all five shapes and under collapsing columns,
+   coordinates; the splat at all seven shapes and under collapsing columns,
    bit for bit against its plain version on the CPU and launch against
    launch; its backward at the training path's;
 3. small-model parity: the fp32 config at 64×96 for 3 frames, on the card
@@ -41,18 +42,30 @@ Phases, in order; any failure exits non-zero:
    call and over the frames after the first, the first frame's time, and the
    kernels' launches around each; each held against a direct drive of the
    same frames through ``TemporalEvaluator``, the card against the CPU at
-   64×96, and the evaluation CLI in a subprocess against the in-process run.
+   64×96, and the evaluation CLI in a subprocess against the in-process run;
+9. training from files: training trees at the datasets' frame sizes,
+   ``read_png`` through the host core against the numpy path, the loader's
+   samples/s at 1, 4 and 8 workers, phase 7's step in this process on its
+   resident batch and on the loader's batches around the SceneFlow recipe
+   run through the training CLI, a SIGTERM to a CLI run's process group and
+   its resume on the same data, and the two fl4 recipes through the CLI;
+   each CLI step's launches held to its window's.
 
 The last line of standard output is the JSON device record. Run from the
-repository root: ``python chip_smoke.py``.
+repository root: ``python chip_smoke.py``. ``python chip_smoke.py
+--loader-cores`` runs phase 1 and then only ``loader_cores_probe``: phase
+7's step on the loader's batches with the workers sharing the host's cores
+in several ways.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -435,11 +448,16 @@ def splat_records(rate: float, g: torch.Generator, exact: bool = True) -> tuple:
     return records, inputs
 
 
+# The fl4 recipes' crops, (H, W) at batch TRAIN_B, as config.RECIPES has them
+# (phase 2 checks that it still does); phase 9 trains them from files.
+FL4_CROPS = {"TartanAir": (480, 640), "kitti_raw": (320, 1024)}
 # Grid of the lookup and the splat on each path: (batch, h, w) at a quarter of
 # the image, padded to /32 as the model pads it; the evaluators' at each
 # dataset's frame size (KITTI's top pyramid level is 39 wide, an odd width).
 LOOKUP_SHAPES = {"inference": (1, MAIN_H // 4, MAIN_W // 4),
                  "training": (TRAIN_B, TRAIN_H // 4, TRAIN_W // 4),
+                 **{f"training {name}": (TRAIN_B, H // 4, W // 4)
+                    for name, (H, W) in FL4_CROPS.items()},
                  **{f"evaluation {name}": (1, -(-kw["height"] // 32) * 8, -(-kw["width"] // 32) * 8)
                     for name, (_, kw, _, _) in EVAL_TREES.items()}}
 LOOKUP_LEVELS, LOOKUP_RADIUS = 4, 4
@@ -479,8 +497,13 @@ def phase_kernels(rate: float) -> dict:
     splat at each path's shapes (``LOOKUP_SHAPES``), the splat also under
     collapsing columns, its backward at the training path's. Records by
     (kernel, shape, type)."""
+    from tcs_tpu_torch.config import RECIPES
     from tcs_tpu_torch.ops import splat
 
+    for name, (H, W) in FL4_CROPS.items():
+        cfg = RECIPES[name]()
+        if (cfg.batch_size, *cfg.image_size) != (TRAIN_B, H, W):
+            fail(f"the {name} recipe no longer has the shapes phase 2 checks")
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
     records = lookup_records(rate, g)
@@ -796,8 +819,9 @@ def phase_small_gradient_parity() -> None:
             fail(f"small-model gradient of {worst}, {tag}: {share[worst]} of the largest entry")
 
 
-def phase_training_path(smi: str) -> dict:
-    """``make_train_step`` at the SceneFlow recipe's shapes, default config."""
+def phase_training_path(smi: str):
+    """``make_train_step`` at the SceneFlow recipe's shapes, default config;
+    returns the launch counts and the median ms/step."""
     from tcs_tpu_torch.config import sceneflow_recipe
     from tcs_tpu_torch.models import TCStereo
     from tcs_tpu_torch.ops import _kernels
@@ -849,7 +873,7 @@ def phase_training_path(smi: str) -> dict:
           f"{TRAIN_ITERS}: median {med:.2f} ms/step, "
           f"{TRAIN_B * TRAIN_FRAMES * 1000 / med:.2f} frames/s on {smi}")
     print(f"training peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return counts
+    return counts, med
 
 
 @contextlib.contextmanager
@@ -1098,26 +1122,374 @@ def phase_evaluators(smi: str) -> dict:
     return total
 
 
+# Phase 9, training from files: the trees (frames per sequence at the
+# datasets' frame sizes), the CLI runs' lengths and the loader's workers.
+TREE_FRAMES = 6
+FILE_STEPS = 12  # the SceneFlow recipe from files; medians over steps 3..n
+RESUME_STEPS, RESUME_EVERY, SIGTERM_AFTER = 6, 4, 2
+FL4_STEPS = 4
+LOADER_WORKERS = (1, 4, 8)
+LOADER_BATCHES = {1: 2, 4: 4, 8: 6}  # timed after the first, which pays for the start
+# Phase 7's step in this process, on the device-resident batch (R) and on the
+# loader's (F), in blocks ordered R F, the CLI run from files, F R: the
+# resident blocks are the CLI run's baseline, with the host's drift over
+# the blocks falling on both sides alike.
+BRACKET_STEPS = 8
+LOADER_SETTLE_S = 3.0  # the loader fills its prefetch window
+# python chip_smoke.py --loader-cores: rounds of blocks, steps a block, the
+# worker counts tried.
+PROBE_ROUNDS, PROBE_STEPS, PROBE_WORKERS = 3, 5, (3, 4, 6)
+STEP_LAUNCHES = {2: {"corr_lookup": 10, "corr_lookup_bwd": 10, "splat_sum": 1, "splat_sum_bwd": 0},
+                 4: {"corr_lookup": 20, "corr_lookup_bwd": 20, "splat_sum": 3, "splat_sum_bwd": 0}}
+
+
+def train_cli(args, root, name) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-m", "tcs_tpu_torch.cli.train", *args,
+                             "--data_root", root, "--checkpoint_dir",
+                             os.path.join(root, "ck"), "--name", name],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)  # its own process group, with its workers
+
+
+def step_records(root, name) -> list:
+    path = os.path.join(root, "ck", f"{name}_steps.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.endswith("\n")]
+
+
+def run_train_cli(args, root, name, timeout=600) -> list:
+    """Run the training CLI to its end; its per-step records."""
+    t0 = time.perf_counter()
+    proc = train_cli(args, root, name)
+    out, _ = proc.communicate(timeout=timeout)
+    with open(os.path.join("runs", f"train_{name}.log"), "w") as f:
+        f.write(out)
+    print(f"training CLI {name} ({' '.join(args)}): exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.2f} s (log: runs/train_{name}.log)")
+    if proc.returncode != 0:
+        fail(f"training CLI {name} exited {proc.returncode}:\n{out[-4000:]}")
+    return step_records(root, name)
+
+
+def summarise_steps(tag, recs, batch, frames, smi) -> dict:
+    """Medians over steps 3..n; fails on a launch count other than the
+    window's or a loss that is not finite."""
+    want = STEP_LAUNCHES[frames]
+    for r in recs:
+        if r["launches"] != want or not np.isfinite(r["live_loss"]):
+            fail(f"{tag} step {r['step']}: launches {r['launches']} (want {want}), "
+                 f"loss {r['live_loss']}")
+    steady = recs[2:]
+    med = {k: float(np.median([r[k] for r in steady]))
+           for k in ("wall_ms", "step_ms", "data_wait_ms", "h2d_ms")}
+    med["frames_per_s"] = batch * frames * 1000 / med["wall_ms"]
+    med["peak_gib"] = max(r["peak_gib"] for r in recs)
+    print(f"{tag}: {len(recs)} steps, over steps 3-{len(recs)}: median {med['wall_ms']:.2f} "
+          f"ms/step, {med['frames_per_s']:.2f} frames/s, data wait {med['data_wait_ms']:.3f} ms, "
+          f"H2D {med['h2d_ms']:.3f} ms, step {med['step_ms']:.2f} ms; peak {med['peak_gib']:.3f} "
+          f"GiB; launches per step {want}; all steps ms {[round(r['wall_ms'], 1) for r in recs]} "
+          f"on {smi}")
+    return med
+
+
+def decode_ms(path) -> tuple:
+    """ms per read of an 8-bit RGB PNG through ``read_png`` (zlib and the host
+    core) and through the numpy path (zlib and the anti-diagonal unfilter),
+    and the two arrays."""
+    import struct
+    import zlib
+
+    from tcs_tpu_torch.data import png
+
+    def plain():
+        chunks = list(png._chunks(open(path, "rb").read(), path))
+        width, height = struct.unpack(">II", dict(chunks)[b"IHDR"][:8])
+        raw = np.frombuffer(zlib.decompress(b"".join(b for k, b in chunks if k == b"IDAT")),
+                            np.uint8).reshape(height, -1)
+        return png._unfilter_diagonals(raw[:, 1:], raw[:, 0], 3).reshape(height, width, 3)
+
+    times = {}
+    for name, fn, reps in (("host", lambda: png.read_png(path), 10), ("plain", plain, 3)):
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            img = fn()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        times[name] = (float(np.median(ms)), img)
+    return times["host"][0], times["plain"][0], times["host"][1], times["plain"][1]
+
+
+def loader_rate(ds, workers: int, batch: int) -> float:
+    """Samples/s of the loader alone, over the batches after the first."""
+    from tcs_tpu_torch.data.loader import SequenceLoader
+
+    with SequenceLoader(ds, batch, num_workers=workers) as loader:
+        it = loader.stream(1)
+        next(it)
+        t0 = time.perf_counter()
+        n = LOADER_BATCHES[workers]
+        for _ in range(n):
+            next(it)
+        rate = n * batch / (time.perf_counter() - t0)
+        it.close()
+    return rate
+
+
+def step_timer(cfg):
+    """Phase 7's step in this process: a function of (n, batches) that runs n
+    steps and returns their ms each, on phase 7's device-resident batch or,
+    given a loader's stream, on its batches, each copied to the card within
+    its step's time as the trainer copies it."""
+    from tcs_tpu_torch.models import TCStereo
+    from tcs_tpu_torch.train import SequenceBatch, make_train_step
+
+    model = TCStereo(cfg.model, seed=0)
+    step = make_train_step(model, cfg)
+    resident = _synthetic_batch(TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_FRAMES, cfg.seed, "cuda")
+    step(resident)["live_loss"].item()  # warm-up
+
+    def timed(n: int, batches=None) -> list:
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = (resident if batches is None
+                     else SequenceBatch.from_loader(next(batches)[2], "cuda"))
+            step(batch)["live_loss"].item()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return times
+
+    return timed
+
+
+def started_stream(loader, timed):
+    """The loader's stream after one step on its first batch (the workers'
+    start) and a pause that fills its prefetch window: its steady state."""
+    batches = loader.stream(1)
+    timed(1, batches)
+    time.sleep(LOADER_SETTLE_S)
+    return batches
+
+
+def loader_cores_probe(smi: str) -> None:
+    """``python chip_smoke.py --loader-cores``: phase 7's step in this
+    process on the loader's batches, with the workers sharing the host's
+    cores in several ways, each block of steps beside a block on the
+    device-resident batch, rounds interleaved so that the host's drift falls
+    on every case alike."""
+    import tempfile
+
+    from tcs_tpu_torch.config import sceneflow_recipe
+    from tcs_tpu_torch.data import datasets, fabricate
+    from tcs_tpu_torch.data.loader import SequenceLoader
+
+    tmp_dir = tempfile.TemporaryDirectory(prefix="probe_tree_", dir="runs")
+    fabricate.sceneflow_train_tree(tmp_dir.name, frames=TREE_FRAMES)
+    cfg = dataclasses.replace(sceneflow_recipe(), data_root=tmp_dir.name)
+    ds = datasets.fetch_dataset(cfg)
+    timed = step_timer(cfg)
+    cpus = sorted(os.sched_getaffinity(0))
+    launcher_cpu, worker_cpus = cpus[0], set(cpus[1:])
+    cases = {f"{w} workers": (w, False, 0) for w in PROBE_WORKERS}
+    cases[f"4 workers on CPUs {sorted(worker_cpus)}, the launching thread on CPU "
+          f"{launcher_cpu}"] = (4, True, 0)
+    cases["4 workers at nice 10"] = (4, False, 10)
+    res = {name: [] for name in ("device-resident batch", *cases)}
+    for _ in range(PROBE_ROUNDS):
+        for name, (workers, pin, nice) in cases.items():
+            with SequenceLoader(ds, cfg.batch_size, seed=cfg.seed, num_workers=workers,
+                                pin_memory=True) as loader:
+                batches = started_stream(loader, timed)
+                for pid in loader._pool._processes:
+                    if pin:
+                        os.sched_setaffinity(pid, worker_cpus)
+                    os.setpriority(os.PRIO_PROCESS, pid, nice)
+                if pin:
+                    os.sched_setaffinity(0, {launcher_cpu})  # this thread only
+                try:
+                    res[name] += timed(PROBE_STEPS, batches)
+                finally:
+                    os.sched_setaffinity(0, cpus)
+                    batches.close()
+            res["device-resident batch"] += timed(PROBE_STEPS)
+    alone = float(np.median(res["device-resident batch"]))
+    for name, times in res.items():
+        med = float(np.median(times))
+        print(f"loader cores: phase 7's step (B{TRAIN_B} {TRAIN_H}x{TRAIN_W}) on the "
+              f"{'loader' if name in cases else ''} {name}: median {med:.2f} ms over "
+              f"{len(times)} steps, {alone / med:.3f} of the device-resident batch's frames/s; "
+              f"ms {[round(t, 1) for t in times]} on {smi}")
+    tmp_dir.cleanup()
+
+
+def host_description() -> str:
+    """The host's CPUs as the loader's workers see them."""
+    siblings = "/sys/devices/system/cpu/cpu0/topology/thread_siblings_list"
+    per_core = open(siblings).read().strip() if os.path.exists(siblings) else "unknown"
+    shm = shutil.disk_usage("/dev/shm").total / 2**30 if os.path.isdir("/dev/shm") else 0.0
+    return (f"{os.cpu_count()} CPUs (CPU 0 shares its core with {per_core}), "
+            f"/dev/shm {shm:.1f} GiB")
+
+
+def phase_training_from_files(smi: str, train_ms: float) -> dict:
+    """The three recipes trained from fabricated trees on disk through the
+    training CLI, with the decode, the loader, SIGTERM and resume; returns
+    the launch counts of the CLI runs, summed."""
+    import signal
+    import tempfile
+
+    from tcs_tpu_torch.config import sceneflow_recipe
+    from tcs_tpu_torch.data import datasets, fabricate
+    from tcs_tpu_torch.data.loader import SequenceLoader
+    from tcs_tpu_torch.models import TCStereo
+    from tcs_tpu_torch.utils.checkpoint import CheckpointManager, load_weights
+
+    print(f"training from files: host {host_description()}")
+    tmp_dir = tempfile.TemporaryDirectory(prefix="train_trees_", dir="runs")
+    root = tmp_dir.name
+    t_phase = t0 = time.perf_counter()
+    fabricate.sceneflow_train_tree(root, frames=TREE_FRAMES)
+    fabricate.tartanair_train_tree(root, frames=TREE_FRAMES)
+    fabricate.kitti_raw_tree(root, frames=TREE_FRAMES)
+    subprocess.run([sys.executable, "-m", "tcs_tpu_torch.data.kitti_raw_pose", "--root",
+                    os.path.join(root, "kitti_raw")], check=True, capture_output=True)
+    print(f"training trees (SceneFlow 540x960, TartanAir 480x640, KITTI raw 375x1242; "
+          f"{TREE_FRAMES} frames a sequence, Paeth-filtered PNGs) written in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    png_path = os.path.join(root, "FlyingThings3D", "frames_cleanpass", "TRAIN", "A", "0000",
+                            "left", "0000.png")
+    host_ms, plain_ms, a, b = decode_ms(png_path)
+    print(f"read_png 540x960 RGB, Paeth rows: host core {host_ms:.3f} ms, numpy path "
+          f"{plain_ms:.3f} ms per call, equal {np.array_equal(a, b)}, on {smi}")
+    if a.shape != (540, 960, 3) or not np.array_equal(a, b):
+        fail("read_png through the host core differs from the numpy path")
+
+    cfg = dataclasses.replace(sceneflow_recipe(), data_root=root)
+    ds = datasets.fetch_dataset(cfg)
+    consume = TRAIN_B * 1000 / train_ms
+    for workers in LOADER_WORKERS:
+        rate = loader_rate(ds, workers, cfg.batch_size)
+        print(f"loader alone, SceneFlow recipe (B{cfg.batch_size}, 2 frames, 540x960 files, "
+              f"{len(ds)} samples), {workers} worker processes: {rate:.2f} samples/s; "
+              f"phase 7's step consumes {consume:.2f} samples/s; on {smi}")
+    print(f"training from files: trees, decode and loader took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    launches = dict.fromkeys(STEP_LAUNCHES[2], 0)
+
+    def add(recs):
+        for r in recs:
+            for k in launches:
+                launches[k] += r["launches"][k]
+
+    # Phase 7's step in this process on the resident batch (R) and on the
+    # loader's batches (F), around the CLI run from files: R F CLI F R.
+    timed = step_timer(cfg)
+    bracket = timed(BRACKET_STEPS)
+    with SequenceLoader(ds, cfg.batch_size, seed=cfg.seed, num_workers=cfg.num_workers,
+                        pin_memory=True) as loader:
+        batches = started_stream(loader, timed)
+        fed = timed(BRACKET_STEPS, batches)
+        sf = run_train_cli(["--recipe", "sceneflow", "--num_steps", str(FILE_STEPS)], root, "sf")
+        fed += timed(BRACKET_STEPS, batches)
+        batches.close()
+    bracket += timed(BRACKET_STEPS)
+    del timed  # its model and batch; the card's memory goes to the CLI runs below
+    torch.cuda.empty_cache()
+    add(sf)
+    med = summarise_steps("SceneFlow recipe from files (B4 320x720 fl2)", sf, 4, 2, smi)
+    resident_ms, fed_ms = float(np.median(bracket)), float(np.median(fed))
+    fps = lambda ms: TRAIN_B * TRAIN_FRAMES * 1000 / ms  # noqa: E731
+    print(f"phase 7's step in this process, {2 * BRACKET_STEPS} steps each, before and after "
+          f"the CLI run: on the device-resident batch median {resident_ms:.2f} ms/step "
+          f"({fps(resident_ms):.2f} frames/s), ms {[round(t, 1) for t in bracket]}; on the "
+          f"{cfg.num_workers}-process loader's batches median {fed_ms:.2f} ms/step "
+          f"({fps(fed_ms):.2f} frames/s, {fps(fed_ms) / fps(resident_ms):.3f} of the resident "
+          f"batch's), ms {[round(t, 1) for t in fed]}; on {smi}")
+    for what, ms in ((f"phase 7 (device-resident batch, {train_ms:.2f} ms/step", train_ms),
+                     (f"the device-resident step around it (median {resident_ms:.2f} ms/step",
+                      resident_ms)):
+        print(f"SceneFlow from files against {what}, {fps(ms):.2f} frames/s): "
+              f"{med['frames_per_s'] / fps(ms):.3f} of its frames/s (goal >= 0.85)")
+    print(f"SceneFlow from files: median data wait {med['data_wait_ms'] / med['wall_ms']:.4f} "
+          f"of the median step (goal < 0.10)")
+
+    # SIGTERM to the CLI's process group, its workers with it, as a job
+    # scheduler preempts, after step SIGTERM_AFTER; the same command resumes.
+    resume_args = ["--recipe", "sceneflow", "--num_steps", str(RESUME_STEPS),
+                   "--validation_frequency", str(RESUME_EVERY)]
+    proc = train_cli(resume_args, root, "sig")
+    while len(step_records(root, "sig")) < SIGTERM_AFTER and proc.poll() is None:
+        time.sleep(0.05)
+    os.killpg(proc.pid, signal.SIGTERM)
+    out, _ = proc.communicate(timeout=300)
+    with open(os.path.join("runs", "train_sig_stopped.log"), "w") as f:
+        f.write(out)
+    first = step_records(root, "sig")
+    k = first[-1]["step"]
+    mgr = CheckpointManager(os.path.join(root, "ck", "sig"))
+    print(f"SIGTERM to the process group after step {SIGTERM_AFTER}'s record: exit {proc.returncode}, last step {k}, "
+          f"newest checkpoint {mgr.latest_step()}")
+    if proc.returncode != 0 or mgr.latest_step() != k or k >= RESUME_STEPS:
+        fail(f"SIGTERM: exit {proc.returncode}, last step {k}, checkpoint {mgr.latest_step()}")
+    model = TCStereo(cfg.model, seed=1)
+    load_weights(model, mgr.path(k))
+    saved = torch.load(mgr.path(k), map_location="cpu", weights_only=True)["model"]
+    if not all(torch.equal(v.cpu(), saved[n]) for n, v in model.state_dict().items()):
+        fail("the checkpoint's weights do not reload bit for bit")
+    both = run_train_cli(resume_args, root, "sig")
+    pos = lambda r: (r["step"], r["epoch"], r["batch"], r["index"])  # noqa: E731
+    want = [pos(r) for r in sf if r["step"] <= RESUME_STEPS]
+    print(f"resumed at step {both[len(first)]['step'] if len(both) > k else None}: (step, "
+          f"epoch, batch, indices) before the stop and after the resume "
+          f"{[pos(r) for r in both]}; the uninterrupted run's {want}; weights reloaded bit "
+          f"for bit")
+    if [pos(r) for r in both] != want:
+        fail("the stopped and resumed run's data differs from the uninterrupted run's")
+
+    # The fl4 recipes; KITTI raw starts from the SceneFlow run's last weights.
+    start = CheckpointManager(os.path.join(root, "ck", "sf"))
+    for recipe, name, extra in (
+            ("TartanAir", "ta", []),
+            ("kitti_raw", "kr", ["--restore_ckpt", start.path(start.latest_step())])):
+        recs = run_train_cli(["--recipe", recipe, "--num_steps", str(FL4_STEPS), *extra], root,
+                             name)
+        add(recs)
+        H, W = FL4_CROPS[recipe]
+        summarise_steps(f"{recipe} recipe from files (B{TRAIN_B} {H}x{W} fl4)", recs, TRAIN_B, 4,
+                        smi)
+    tmp_dir.cleanup()
+    print(f"training from files: phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     smi = phase_device()
+    if sys.argv[1:] == ["--loader-cores"]:
+        loader_cores_probe(smi)
+        return
     rate = hbm_bytes_per_s(smi)
     launch_floor()
     rec = phase_kernels(rate)
     phase_small_parity()
     paths = {"inference": phase_main_path(smi), "op_gradients": phase_op_gradients()}
     phase_small_gradient_parity()
-    paths["training"] = phase_training_path(smi)
+    paths["training"], train_ms = phase_training_path(smi)
     paths["evaluation"] = phase_evaluators(smi)
+    paths["training_from_files"] = phase_training_from_files(smi, train_ms)
     # `launches` sums the driven paths, each of which set the counts to 0
     # before it and read them after. The times and the bound are at the
     # shapes of the path that launches the kernel most, in the type it runs
     # there: the inference path's for the forward kernels, the training
     # path's for the backward ones; bf16 pyramids, fp32 splat payloads. The
     # forward kernels' numbers at the training path's and the evaluators'
-    # shapes stand beside them, and `max_abs_err` is the largest over every
-    # shape and type checked.
+    # shapes, and the path kernels' at the fl4 recipes' shapes, stand beside
+    # them; `max_abs_err` is the largest over every shape and type checked.
     sources = {
         "corr_lookup": ("corr_lookup.cu", "tcs_tpu/ops/pallas/corr_kernel.py:76", "bfloat16"),
         "corr_lookup_bwd": ("corr_lookup_bwd.cu", "tcs_tpu/ops/corr.py:341", "bfloat16"),
@@ -1140,6 +1512,10 @@ def main() -> None:
             entry["at_evaluation_shapes"] = {
                 sh: {k: rec[name, sh, dtype].get(k) for k in keys}
                 for sh in LOOKUP_SHAPES if sh.startswith("evaluation")}
+        if name != "splat_sum_bwd":  # which no path launches
+            entry["at_fl4_training_shapes"] = {
+                sh: {k: rec[name, sh, dtype].get(k) for k in keys}
+                for sh in LOOKUP_SHAPES if sh.startswith("training ")}
         if name.startswith("splat"):  # over every shape checked
             for k in ("deterministic", "bit_exact"):
                 entry[k] = all(r[k] for r in mine.values())

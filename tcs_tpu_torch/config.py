@@ -11,7 +11,7 @@ the GPU, so they are not carried over.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 CONTEXT_NORMS = ("group", "batch", "instance", "none")
@@ -76,20 +76,21 @@ class TrainConfig:
     scheduling choices that its tests pin as numerically equivalent. The port
     has one formulation, the frame-inline one: a Python loop over the frames
     with one ``backward()`` per frame, which frees that frame's graph. So none
-    of those fields is carried over. The run name and the augmentation,
-    checkpoint and loader fields come with the trainer and the data readers.
+    of those fields is carried over; every other field is, with its value.
     """
 
+    name: str = "TC-Stereo"  # run name: checkpoints and logs go under it
     train_dataset: str = "sceneflow"  # {'sceneflow','TartanAir','kitti_raw'}
     lr: float = 2e-4
     num_steps: int = 200_000
     batch_size: int = 4  # per-process batch (reference: per-GPU batch 4)
     image_size: Tuple[int, int] = (320, 720)  # (H, W) crop
     frame_length: int = 2  # frames per window; carries are detached between them
-    # For the data readers (a later slice): False makes them yield single
-    # pairs. The train step takes the window it is given, whatever this says.
+    # False trains single pairs (T=1, the argmax-bootstrap path only): the
+    # 'kitti' GT config and the single-frame modes of the datasets.
     temporal: bool = True
     train_iters: int = 5
+    valid_iters: int = 5
     wdecay: float = 1e-5
     grad_clip: float = 1.0
     seed: int = 1234
@@ -98,26 +99,56 @@ class TrainConfig:
     normal_loss_weight: float = 0.25
     grad_loss_weight: float = 5.0
     init_k: int = 3
+    # Augmentation (reference flags)
+    saturation_range: Optional[Tuple[float, float]] = (0.0, 1.4)
+    img_gamma: Optional[Tuple[float, float]] = None
+    # 'h'/'hf'/'v' flips are for single pairs only: the temporal augmentors
+    # refuse them, since a flip would invalidate the carried camera poses.
+    do_flip: Optional[str] = None
+    spatial_scale: Tuple[float, float] = (-0.2, 0.4)
+    # ±2 px right-image row jitter at crop time (simulated imperfect
+    # rectification, reference --noyjitter inverted; every recipe disables it)
+    yjitter: bool = False
+    # Checkpoint (and validate) every this many steps
+    validation_frequency: int = 10_000
+    checkpoint_dir: str = "checkpoints"
+    # Loader worker processes (the reference: 4 worker processes with
+    # prefetch 4, stereo_datasets.py:727-733)
+    num_workers: int = 4
+    # Initial weights: a .pth file, or a directory of full checkpoints (the
+    # newest one's weights)
+    restore_ckpt: Optional[str] = None
+    data_root: str = "datasets"
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
 
 
 def sceneflow_recipe() -> TrainConfig:
     """``sceneflow_ddp_train.sh``: 200k steps, b4, lr 2e-4, 320x720, fl 2."""
-    return TrainConfig(train_dataset="sceneflow",
+    return TrainConfig(name="sceneflow_benchmark", train_dataset="sceneflow",
                        lr=2e-4, num_steps=200_000, batch_size=4,
-                       image_size=(320, 720), frame_length=2)
+                       image_size=(320, 720), frame_length=2,
+                       saturation_range=(0.0, 1.4), spatial_scale=(-0.2, 0.4))
 
 
 def tartanair_recipe() -> TrainConfig:
     """``tartanair_ddp_train.sh``: 100k steps, b4, lr 2e-4, 480x640, fl 4."""
-    return TrainConfig(train_dataset="TartanAir",
+    return TrainConfig(name="ablation_tartanair", train_dataset="TartanAir",
                        lr=2e-4, num_steps=100_000, batch_size=4,
-                       image_size=(480, 640), frame_length=4)
+                       image_size=(480, 640), frame_length=4,
+                       saturation_range=(0.0, 1.4), spatial_scale=(-0.2, 0.4))
 
 
-def kitti_raw_recipe() -> TrainConfig:
-    """``KITTI_ddp_train.sh``: 60k steps, b4, lr 1e-4, 320x1024, fl 4."""
-    return TrainConfig(train_dataset="kitti_raw", lr=1e-4,
+def kitti_raw_recipe(restore: str = "checkpoints/tartanair") -> TrainConfig:
+    """``KITTI_ddp_train.sh``: 60k steps, b4, lr 1e-4, 320x1024, fl 4, from
+    the TartanAir recipe's weights."""
+    return TrainConfig(name="KITTI_RAW", train_dataset="kitti_raw", lr=1e-4,
                        num_steps=60_000, batch_size=4, image_size=(320, 1024),
-                       frame_length=4)
+                       frame_length=4, saturation_range=(0.7, 1.3),
+                       spatial_scale=(-0.2, 0.2), restore_ckpt=restore)
 
+
+RECIPES = {
+    "sceneflow": sceneflow_recipe,
+    "TartanAir": tartanair_recipe,
+    "kitti_raw": kitti_raw_recipe,
+}

@@ -1,6 +1,5 @@
-"""File readers and writers and pose parsers (the port's copy of the test
-side of ``tcs_tpu/data/frame_utils.py:42-260``; reference
-``core/utils/frame_utils.py``).
+"""File readers and writers and pose parsers (the port's copy of
+``tcs_tpu/data/frame_utils.py``; reference ``core/utils/frame_utils.py``).
 
 numpy only: PNG goes through :mod:`tcs_tpu_torch.data.png`, not PIL or a
 native decoder. Disparity readers return ``(disp, valid)`` where the format
@@ -10,8 +9,10 @@ carries a validity channel; pose parsers return lists of world→camera
 
 from __future__ import annotations
 
+import json
+import os
 import re
-from os.path import splitext
+from os.path import basename, splitext
 
 import numpy as np
 
@@ -24,8 +25,8 @@ def read_image(path) -> np.ndarray:
     ext = splitext(str(path))[-1].lower()
     if ext in (".jpg", ".jpeg"):
         raise NotImplementedError(
-            f"{path}: the port reads PNG only; JPEG frames come with the"
-            " training side of the data (ROADMAP Queue 1, item 4)")
+            f"{path}: the port reads PNG only; JPEG (FallingThings' frames, which"
+            " no recipe reads) has no decoder in the port")
     if ext != ".png":
         raise ValueError(f"{path}: not an image format the port reads (PNG)")
     img = png.read_png(path)
@@ -82,6 +83,31 @@ def readDispKITTI(path):
 
 def writeDispKITTI(path, disp: np.ndarray):
     write_uint16_png(path, (disp * 256.0).astype(np.uint16))
+
+
+def readDispSintelStereo(path):
+    a = png.read_png(path).astype(np.float32)
+    disp = a[..., 0] * 4 + a[..., 1] / (2 ** 6) + a[..., 2] / (2 ** 14)
+    mask = png.read_png(path.replace("disparities", "occlusions"))
+    return disp, (mask == 0) & (disp > 0)
+
+
+def readDispFallingThings(path):
+    a = png.read_png(path).astype(np.float32)
+    with open(os.path.join(os.path.dirname(path), "_camera_settings.json")) as f:
+        intrinsics = json.load(f)
+    fx = intrinsics["camera_settings"][0]["intrinsic_settings"]["fx"]
+    disp = (fx * 6.0 * 100) / a
+    return disp, disp > 0
+
+
+def readDispMiddlebury(path):
+    if basename(path) == "disp0GT.pfm":
+        disp = readPFM(path).astype(np.float32)
+        nocc = png.read_png(path.replace("disp0GT.pfm", "mask0nocc.png"))
+        return disp, nocc == 255
+    disp = readPFM(path).astype(np.float32)
+    return disp, disp < 1e3
 
 
 def readDispTartanAir(path):

@@ -5,12 +5,16 @@ libpng, which the GPU machine does not have (``tcs_tpu`` decodes through PIL
 and a native libpng decoder, ``tcs_tpu/data/frame_utils.py:29``).
 
 :func:`read_png` reads non-interlaced files of bit depth 8 or 16 in every
-colour type (gray, RGB, palette, gray+alpha, RGBA) and undoes all five row
-filters. Rows filtered with None, Sub or Up are undone a row at a time;
-when a file has Average or Paeth rows, whose predictors depend on the
-pixel to the left, the whole image is undone along its anti-diagonals, each
-one a vector operation over all the rows it crosses. :func:`write_png`
-writes 8-bit gray and RGB and 16-bit gray, every row unfiltered.
+colour type (gray, RGB, palette, gray+alpha, RGBA). ``zlib`` inflates the
+image data (it releases the GIL while it does) and the port's host core
+(``csrc/host_io.c`` through :mod:`tcs_tpu_torch.data._host`) undoes the five
+row filters, which real files mix row by row. Two numpy versions stay beside
+it as its plain references: :func:`_unfilter_rows` for None, Sub and Up rows,
+a row at a time, and :func:`_unfilter_diagonals` for any mix, along the
+image's anti-diagonals, since Average and Paeth predict from the
+reconstructed pixel to the left. :func:`write_png` writes 8-bit gray and RGB
+and 16-bit gray, with every row unfiltered or every row Paeth-filtered (what
+encoders choose for photographs, and what costs a reader most).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+from tcs_tpu_torch.data import _host
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples per pixel
@@ -109,14 +115,10 @@ def read_png(path) -> np.ndarray:
     if raw.size != height * (width * bpp + 1):
         raise ValueError(f"{path}: image data has {raw.size} bytes, expected "
                          f"{height * (width * bpp + 1)}")
-    raw = raw.reshape(height, width * bpp + 1)
-    kinds, filt = raw[:, 0], raw[:, 1:]
-    if kinds.max(initial=0) > 4:
-        raise ValueError(f"{path}: unknown row filter {kinds.max()}")
-    if kinds.max(initial=0) <= 2:
-        rec = _unfilter_rows(filt, kinds, bpp)
-    else:
-        rec = _unfilter_diagonals(filt, kinds, bpp)
+    try:
+        rec = _host.png_unfilter(raw.reshape(height, width * bpp + 1), bpp)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
     if depth == 16:
         img = rec.view(">u2").astype(np.uint16).reshape(height, width, channels)
     else:
@@ -131,9 +133,22 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
         ">I", zlib.crc32(kind + body))
 
 
-def write_png(path, array: np.ndarray, level: int = 6) -> None:
+def _paeth_filter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Each byte less the Paeth predictor of its unfiltered neighbours."""
+    x = rows.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    return ((x - _paeth(a, b, c)) & 0xFF).astype(np.uint8)
+
+
+def write_png(path, array: np.ndarray, level: int = 6, filter: str = "none") -> None:
     """uint8 (H, W) or (H, W, 3), or uint16 (H, W), as gray, RGB or 16-bit
-    gray (big-endian), every row with filter None."""
+    gray (big-endian); every row with filter None (``filter="none"``) or
+    Paeth (``"paeth"``)."""
     a = np.asarray(array)
     if a.dtype == np.uint8 and a.ndim == 2:
         color, depth = 0, 8
@@ -144,9 +159,14 @@ def write_png(path, array: np.ndarray, level: int = 6) -> None:
     else:
         raise ValueError(f"{path}: cannot write a {a.dtype} array of shape {a.shape}"
                          " (uint8 gray or RGB, or uint16 gray)")
+    if filter not in ("none", "paeth"):
+        raise ValueError(f"filter {filter!r}: 'none' or 'paeth'")
     height, width = a.shape[:2]
     rows = np.ascontiguousarray(a).view(np.uint8).reshape(height, -1)
-    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
+    kind = 0
+    if filter == "paeth":
+        kind, rows = 4, _paeth_filter(rows, rows.shape[1] // width)
+    raw = np.concatenate([np.full((height, 1), kind, np.uint8), rows], axis=1)
     header = struct.pack(">IIBBBBB", width, height, depth, color, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(SIGNATURE + _chunk(b"IHDR", header)

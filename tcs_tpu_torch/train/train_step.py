@@ -70,6 +70,24 @@ class SequenceBatch:
                                device=device)
             for k in ("image1", "image2", "flow", "valid", "T", "K", "baseline")})
 
+    @staticmethod
+    def from_loader(batch: Dict[str, np.ndarray], device) -> "SequenceBatch":
+        """A batch of ``data.loader.SequenceLoader`` (float32 numpy arrays, or
+        tensors in pinned memory) on ``device``. To a GPU each array goes
+        through pinned host memory (a pinned tensor as it is), with a copy
+        that does not wait for the device."""
+        device = torch.device(device)
+
+        def put(a) -> torch.Tensor:
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(a, np.float32))
+            if device.type == "cuda":
+                return t.pin_memory().to(device, torch.float32, non_blocking=True)
+            return t.to(device, torch.float32)
+
+        return SequenceBatch(**{k: put(batch[k]) for k in (
+            "image1", "image2", "flow", "valid", "T", "K", "baseline")})
+
 
 def frame_losses(out: TCStereoOutput, frame: FrameBatch, cfg: TrainConfig):
     """All four losses of one frame (reference train_stereo.py:363-399):

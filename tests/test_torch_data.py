@@ -7,6 +7,7 @@ parsers and test datasets are held to ``tcs_tpu.data`` on the same files.
 Nothing here compiles a JAX program.
 """
 
+import dataclasses
 import os
 import struct
 import zlib
@@ -122,7 +123,7 @@ def test_png_refuses_what_it_does_not_read(tmp_path):
     with pytest.raises(ValueError, match="cannot write"):
         png.write_png(tmp_path / "f.png", np.zeros((4, 5), np.float32))
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(NotImplementedError, match="x.jpg.*item 4"):
+    with pytest.raises(NotImplementedError, match="x.jpg.*JPEG"):
         frame_utils.read_image(tmp_path / "x.jpg")
 
 
@@ -250,18 +251,26 @@ def test_test_datasets_match_tcs_tpu(trees):
 
 
 def test_training_side_raises(trees):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        datasets.TartanAir({"crop_size": (32, 64)}, root=trees, is_test=True, mode="temporal")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        datasets.TartanAir(None, root=trees, mode="temporal")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        datasets.SceneFlowDatasets(None, root=trees, mode="temporal")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        datasets.KITTI(None, root=trees, mode="single_frame")
-    ds = datasets.KITTI(None, root=os.path.join(trees, "KITTI"), is_test=True,
-                        mode="temporal", image_set="kitti_seq/kitti2015_testings")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ds.load_sample(0, np.random.default_rng(0))
+    """The training side refuses what tcs_tpu refuses, with the same errors."""
+    from tcs_tpu_torch.config import TrainConfig
+
+    for mod in (datasets, jax_datasets):
+        with pytest.raises(NotImplementedError):
+            mod.KITTI(None, root=trees, is_test=True, mode="single_frame")
+        with pytest.raises(NotImplementedError):
+            mod.KITTI(None, root=trees, mode="temporal")
+        with pytest.raises(ValueError, match="do_flip"):
+            mod.TartanAir({"crop_size": (32, 64), "do_flip": "h"}, root=trees, mode="temporal")
+        pairs = mod.TartanAir(None, root=trees, mode="single_frame")
+        with pytest.raises(AssertionError, match="load_pair"):
+            pairs.load_sample(0, np.random.default_rng(0))
+    cfg = TrainConfig(data_root=trees, image_size=(32, 64))
+    with pytest.raises(NotImplementedError, match="single-frame only"):
+        datasets.fetch_dataset(dataclasses.replace(cfg, train_dataset="kitti"))
+    with pytest.raises(ValueError, match="frame_length=1"):
+        datasets.fetch_dataset(dataclasses.replace(cfg, train_dataset="eth3d"))
+    with pytest.raises(ValueError, match="frame_length=1"):
+        datasets.fetch_dataset(dataclasses.replace(cfg, temporal=False))
 
 
 def test_visualization_and_error_maps_match_tcs_tpu(tmp_path):

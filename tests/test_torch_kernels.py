@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card, and
+the loader's pinned batches on their way to it.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for the card and
 skips without one. On a GPU machine, where JAX is missing and
@@ -338,3 +339,31 @@ def test_tartanair_evaluator_launches_the_kernels(cuda_device, tmp_path):
     assert dict(_kernels.launches) == {"corr_lookup": 6 * 2, "corr_lookup_bwd": 0,
                                        "splat_sum": 6 - 2, "splat_sum_bwd": 0}
     assert len(res) == 5 and all(np.isfinite(v) for v in res.values())
+
+
+class _Clips:
+    """Six clips of random fields at a tiny size."""
+
+    shapes = {"image1": (2, 4, 6, 3), "image2": (2, 4, 6, 3), "flow": (2, 4, 6, 1),
+              "valid": (2, 4, 6, 1), "T": (2, 4, 4), "K": (3, 3), "baseline": ()}
+
+    def __len__(self):
+        return 6
+
+    def load_sample(self, index, rng):
+        return {k: rng.random(shape).astype(np.float32) for k, shape in self.shapes.items()}
+
+
+@pytest.mark.parametrize("workers", [0, 1])
+def test_loader_stacks_pinned_batches_that_reach_the_card_unchanged(cuda_device, workers):
+    from tcs_tpu_torch.data.loader import SequenceLoader
+    from tcs_tpu_torch.train import SequenceBatch
+
+    plain = SequenceLoader(_Clips(), 2, seed=5, num_workers=0)
+    with SequenceLoader(_Clips(), 2, seed=5, num_workers=workers, pin_memory=True) as pinned:
+        for a, b in zip(plain, pinned):
+            assert all(b[k].is_pinned() and np.array_equal(a[k], b[k].numpy())
+                       for k in _Clips.shapes)
+            on_card = SequenceBatch.from_loader(b, cuda_device)
+            for k in _Clips.shapes:
+                assert torch.equal(getattr(on_card, k).cpu(), torch.from_numpy(a[k]))
