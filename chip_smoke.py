@@ -49,7 +49,17 @@ Phases, in order; any failure exits non-zero:
    resident batch and on the loader's batches around the SceneFlow recipe
    run through the training CLI, a SIGTERM to a CLI run's process group and
    its resume on the same data, and the two fl4 recipes through the CLI;
-   each CLI step's launches held to its window's.
+   each CLI step's launches held to its window's;
+10. data parallelism (``tcs_tpu_torch/parallel/mesh.py``): (a) phase 7's
+   step under DDP at world size 1 over NCCL in this process, against the
+   plain step from the same weights and batch, and timed beside it; (b) two
+   ranks sharing the card over Gloo, each with 4 of one batch of 8 (fp32,
+   TF32 off), against one process's step on the 8; (c) the training CLI
+   under ``python -m torch.distributed.run`` (NCCL) on phase 9's SceneFlow
+   tree, stopped by a SIGTERM to the launcher's process group and resumed;
+   (d) the evaluation CLI with ``--sharded`` under the launcher on phase 8's
+   TartanAir tree against phase 8's in-process results; (e) with two cards
+   or more, (b) over NCCL across two of them.
 
 The last line of standard output is the JSON device record. Run from the
 repository root: ``python chip_smoke.py``. ``python chip_smoke.py
@@ -1118,8 +1128,8 @@ def phase_evaluators(smi: str) -> dict:
     hold_metrics("evaluation CLI against the in-process run",
                  json.loads(cli.stdout.strip().splitlines()[-1]), results["TartanAir"],
                  ev.metric_bounds(direct["TartanAir"], EVAL_DIRECT_TOL, "TartanAir"))
-    tmp_dir.cleanup()
-    return total
+    # phase 10 runs the sharded CLI on the same tree and weights
+    return total, dict(tmp_dir=tmp_dir, root=root, pth=pth, results=results["TartanAir"])
 
 
 # Phase 9, training from files: the trees (frames per sequence at the
@@ -1143,12 +1153,18 @@ STEP_LAUNCHES = {2: {"corr_lookup": 10, "corr_lookup_bwd": 10, "splat_sum": 1, "
                  4: {"corr_lookup": 20, "corr_lookup_bwd": 20, "splat_sum": 3, "splat_sum_bwd": 0}}
 
 
-def train_cli(args, root, name) -> subprocess.Popen:
-    return subprocess.Popen([sys.executable, "-m", "tcs_tpu_torch.cli.train", *args,
+# python -m torch.distributed.run with one process on this machine's card
+LAUNCHER = ("-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1")
+
+
+def train_cli(args, root, name, launcher=()) -> subprocess.Popen:
+    """The training CLI in a process group of its own (its loader's workers,
+    and under ``launcher`` the launcher's processes, with it)."""
+    return subprocess.Popen([sys.executable, *launcher, "-m", "tcs_tpu_torch.cli.train", *args,
                              "--data_root", root, "--checkpoint_dir",
                              os.path.join(root, "ck"), "--name", name],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)  # its own process group, with its workers
+                            start_new_session=True)
 
 
 def step_records(root, name) -> list:
@@ -1159,10 +1175,10 @@ def step_records(root, name) -> list:
         return [json.loads(line) for line in f if line.endswith("\n")]
 
 
-def run_train_cli(args, root, name, timeout=600) -> list:
+def run_train_cli(args, root, name, timeout=600, launcher=()) -> list:
     """Run the training CLI to its end; its per-step records."""
     t0 = time.perf_counter()
-    proc = train_cli(args, root, name)
+    proc = train_cli(args, root, name, launcher)
     out, _ = proc.communicate(timeout=timeout)
     with open(os.path.join("runs", f"train_{name}.log"), "w") as f:
         f.write(out)
@@ -1461,9 +1477,316 @@ def phase_training_from_files(smi: str, train_ms: float) -> dict:
         H, W = FL4_CROPS[recipe]
         summarise_steps(f"{recipe} recipe from files (B{TRAIN_B} {H}x{W} fl4)", recs, TRAIN_B, 4,
                         smi)
-    tmp_dir.cleanup()
     print(f"training from files: phase 9 took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    # phase 10 trains under the launcher on the same tree
+    return launches, dict(tmp_dir=tmp_dir, root=root, sf=sf)
+
+
+# Phase 10, data parallelism.
+DDP_TIMED = 3  # (a): timed steps of each of the plain and the DDP step, after one each
+DDP_GRAD_RTOL = 1e-2  # (b): whole gradient against one process, kinks free (CPU tests' bound)
+DDP_LOSS_RTOL = 1e-3  # (b): the loss, relative: the port's loss bound (PERF.md section 2)
+DDP_BITWISE_RTOL = 1e-6  # (a) where the card is not bitwise repeatable, of the largest entry
+ALLREDUCE_REPS = 5
+
+
+def _fresh_store(name: str) -> str:
+    """A path for a FileStore rendezvous under runs/: none there yet."""
+    path = os.path.abspath(os.path.join("runs", f"{name}_{os.getpid()}"))
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def _flat_grad(model) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+
+def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def ddp_world_one(smi: str, train_ms: float) -> dict:
+    """(a) Phase 7's step under DDP at world 1 over NCCL in this process,
+    from phase 7's weights on its batch, against the plain step; returns
+    the kernels' launches of the DDP steps."""
+    from tcs_tpu_torch.config import sceneflow_recipe
+    from tcs_tpu_torch.models import TCStereo
+    from tcs_tpu_torch.ops import _kernels
+    from tcs_tpu_torch.parallel import mesh
+    from tcs_tpu_torch.train import make_train_step
+
+    store = _fresh_store("ddp_store")
+    mesh.initialize_distributed(f"file://{store}", 1, 0, device="cuda")
+    try:
+        cfg = sceneflow_recipe()
+        batch = _synthetic_batch(TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_FRAMES, cfg.seed, "cuda")
+        plain_model, ddp_model = TCStereo(cfg.model, seed=0), TCStereo(cfg.model, seed=0)
+        plain, ddp = make_train_step(plain_model, cfg), make_train_step(mesh.wrap(ddp_model), cfg)
+        print(f"data parallel (a): DDP over {torch.distributed.get_backend()} at world "
+              f"{mesh.world_size()}, sum hook, find_unused_parameters")
+
+        def timed(step, n):
+            times = []
+            for _ in range(n):
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                metrics = step(batch)
+                stop.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(stop))
+            return metrics, times
+
+        def state(model):  # the gradients and the updated weights after a step
+            return (_flat_grad(model), torch.cat([p.detach().reshape(-1)
+                                                  for p in model.parameters()]))
+
+        # The first step of each, from the same weights on the same batch.
+        want, _ = timed(plain, 1)
+        grads = [state(plain_model)]
+        _kernels.reset_launches()
+        got, warm = timed(ddp, 1)
+        grads.append(state(ddp_model))
+        _, ddp_times = timed(ddp, DDP_TIMED)
+        counts = dict(_kernels.launches)
+        _, plain_times = timed(plain, DDP_TIMED)
+        steps = 1 + DDP_TIMED
+        per_step = {k: v / steps for k, v in counts.items()}
+        print(f"data parallel (a): launches {counts} over {steps} DDP steps, {per_step} a step; "
+              f"on {smi}")
+        if per_step != STEP_LAUNCHES[TRAIN_FRAMES]:
+            fail(f"DDP step launches {per_step} a step, not {STEP_LAUNCHES[TRAIN_FRAMES]}")
+        same_metrics = {k: float(got[k]) == float(want[k]) for k in want}
+        print(f"data parallel (a): metrics equal bit for bit {all(same_metrics.values())} "
+              f"({[k for k, v in same_metrics.items() if not v]} differ); live_loss "
+              f"{float(got['live_loss']):.6f} against {float(want['live_loss']):.6f}")
+        exact = all(same_metrics.values()) and all(torch.equal(a, b) for a, b in
+                                                   zip(grads[0], grads[1]))
+        if not exact:
+            gap = max(_rel_gap(b, a) for a, b in zip(grads[0], grads[1]))
+            metric_gap = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-12)
+                             for k in want)
+            again_model = TCStereo(cfg.model, seed=0)  # is the plain step repeatable?
+            again, _ = timed(make_train_step(again_model, cfg), 1)
+            repeat = max(_rel_gap(b, a) for a, b in zip(grads[0], state(again_model)))
+            print(f"data parallel (a): not bit for bit: gradients and weights {gap:.3e} of their "
+                  f"largest entry, metrics {metric_gap:.3e} relative (bound {DDP_BITWISE_RTOL:.0e}); "
+                  f"a second plain step from the same weights is {repeat:.3e} off the first, "
+                  f"live_loss {float(again['live_loss']):.6f}")
+            if not (gap <= DDP_BITWISE_RTOL and metric_gap <= DDP_BITWISE_RTOL):
+                fail(f"DDP step at world 1 against the plain step: {gap}, {metric_gap}")
+        else:
+            print("data parallel (a): the DDP step's losses, metrics, gradients and updated "
+                  "weights equal the plain step's bit for bit")
+        med = lambda t: float(np.median(t))  # noqa: E731
+        print(f"data parallel (a): DDP step B{TRAIN_B} {TRAIN_H}x{TRAIN_W} fl{TRAIN_FRAMES} iters "
+              f"{TRAIN_ITERS} median {med(ddp_times):.2f} ms/step (first {warm[0]:.2f}; ms "
+              f"{[round(t, 2) for t in ddp_times]}), the plain step after it "
+              f"{med(plain_times):.2f} ms/step (ms {[round(t, 2) for t in plain_times]}); "
+              f"phase 7 {train_ms:.2f} ms/step; DDP / plain {med(ddp_times) / med(plain_times):.3f}"
+              f"; on {smi}")
+        return counts
+    finally:
+        mesh.destroy()
+        if os.path.exists(store):
+            os.remove(store)
+
+
+def _fp32_recipe():
+    from tcs_tpu_torch.config import ModelConfig, sceneflow_recipe
+
+    return dataclasses.replace(sceneflow_recipe(),
+                               model=ModelConfig(mixed_precision=False, corr_dtype="float32"))
+
+
+def _pair_rank(rank: int, store: str, out: str, backend: str, devices) -> None:
+    """(b), (e): one of two ranks, each on 4 of one batch of 8 (fp32, TF32
+    off): two steps (the first held against one process, the second timed),
+    then the all-reduce of a gradient's size alone."""
+    from tcs_tpu_torch.data.synthetic import make_clips
+    from tcs_tpu_torch.models import TCStereo
+    from tcs_tpu_torch.parallel import mesh
+    from tcs_tpu_torch.train import SequenceBatch, make_train_step
+
+    dev = torch.device(devices[rank])
+    mesh.initialize_distributed(f"file://{store}", 2, rank, backend=backend, device=dev)
+    try:
+        with tf32_off():
+            cfg = _fp32_recipe()
+            model = TCStereo(cfg.model, device=dev, seed=0)
+            step = make_train_step(mesh.wrap(model), cfg)
+            clips = make_clips(2 * TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_FRAMES, cfg.seed)
+            batch = SequenceBatch.from_numpy(clips[rank * TRAIN_B:(rank + 1) * TRAIN_B], dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            metrics = {k: float(v) for k, v in step(batch).items()}
+            grad = _flat_grad(model).cpu()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            step(batch)["live_loss"].item()
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            buf = torch.zeros(grad.numel(), device=dev)
+            times = []
+            for _ in range(ALLREDUCE_REPS + 1):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                mesh.all_reduce_sum(buf)
+                torch.cuda.synchronize(dev)
+                times.append(1e3 * (time.perf_counter() - t0))
+        torch.save(dict(metrics=metrics, grad=grad, step_ms=step_ms,
+                        allreduce_ms=float(np.median(times[1:])), bytes=buf.numel() * 4,
+                        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30),
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        mesh.destroy()
+
+
+def ddp_pair(smi: str, backend: str, devices, want: dict, label: str) -> None:
+    """Two ranks (``_pair_rank``) against one process's step on the 8."""
+    import torch.multiprocessing as tmp
+
+    out = os.path.abspath(os.path.join("runs", f"ddp_pair_{backend}"))
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    tmp.spawn(_pair_rank, args=(_fresh_store(f"ddp_pair_{backend}_store"), out, backend,
+                                devices), nprocs=2, join=True)
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+    equal = torch.equal(ranks[0]["grad"], ranks[1]["grad"])
+    gap = _rel_gap(ranks[0]["grad"], want["grad"])
+    loss_gap = abs(ranks[0]["metrics"]["live_loss"] - want["metrics"]["live_loss"]) / abs(
+        want["metrics"]["live_loss"])
+    print(f"data parallel {label}: {2 * TRAIN_B} samples as 2 ranks x {TRAIN_B} on {devices} over "
+          f"{backend} ({time.perf_counter() - t0:.1f} s with the processes' start): the ranks' "
+          f"gradients equal bit for bit {equal}; against one process's step on the {2 * TRAIN_B}: "
+          f"whole gradient {gap:.3e} of its largest entry (bound {DDP_GRAD_RTOL:.0e}), live_loss "
+          f"{ranks[0]['metrics']['live_loss']:.6f} against {want['metrics']['live_loss']:.6f} "
+          f"({loss_gap:.2e} relative, bound {DDP_LOSS_RTOL:.0e}); on {smi}")
+    for r, res in enumerate(ranks):
+        print(f"data parallel {label}, rank {r}: step {res['step_ms']:.2f} ms (the second, host "
+              f"clock), all-reduce of {res['bytes'] / 1e6:.1f} MB of fp32 gradients "
+              f"{res['allreduce_ms']:.2f} ms, peak {res['peak_gib']:.3f} GiB; on {smi}")
+    if not (equal and gap <= DDP_GRAD_RTOL and loss_gap <= DDP_LOSS_RTOL):
+        fail(f"data parallel {label}: ranks equal {equal}, gradient {gap}, loss {loss_gap}")
+
+
+def one_process_on_eight(smi: str) -> dict:
+    """One process's step on the batch of 8 that (b) splits, fp32, TF32 off."""
+    from tcs_tpu_torch.data.synthetic import make_clips
+    from tcs_tpu_torch.models import TCStereo
+    from tcs_tpu_torch.train import SequenceBatch, make_train_step
+
+    with tf32_off():
+        cfg = _fp32_recipe()
+        model = TCStereo(cfg.model, seed=0)
+        batch = SequenceBatch.from_numpy(
+            make_clips(2 * TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_FRAMES, cfg.seed), "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in make_train_step(model, cfg)(batch).items()}
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = dict(metrics=metrics, grad=_flat_grad(model).cpu())
+    print(f"data parallel (b): one process, B{2 * TRAIN_B} {TRAIN_H}x{TRAIN_W} fp32: first step "
+          f"{ms:.2f} ms, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; on {smi}")
+    del model, batch
+    torch.cuda.empty_cache()
+    return want
+
+
+def ddp_launcher_cli(smi: str, train_tree: dict) -> dict:
+    """(c) The training CLI under the launcher on phase 9's SceneFlow tree:
+    a SIGTERM to the launcher's process group after the second step record,
+    then the same command to its end; returns the steps' launches."""
+    import signal
+
+    from tcs_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root, name = train_tree["root"], "ddp_sig"
+    args = ["--recipe", "sceneflow", "--num_steps", str(RESUME_STEPS),
+            "--validation_frequency", str(RESUME_EVERY)]
+    t0 = time.perf_counter()
+    proc = train_cli(args, root, name, LAUNCHER)
+    while len(step_records(root, name)) < SIGTERM_AFTER and proc.poll() is None:
+        time.sleep(0.05)
+    os.killpg(proc.pid, signal.SIGTERM)
+    out, _ = proc.communicate(timeout=300)
+    with open(os.path.join("runs", f"train_{name}_stopped.log"), "w") as f:
+        f.write(out)
+    first = step_records(root, name)
+    k = first[-1]["step"] if first else None
+    mgr = CheckpointManager(os.path.join(root, "ck", name))
+    clean = (f"SIGTERM: checkpointing at step {k} and stopping" in out
+             and f"Stopped at step {k} " in out)
+    # torch.distributed.run turns a SIGTERM of its own into an exit code of 1
+    # once its processes have stopped; the worker's exit is the trainer's.
+    forwarded = "death signal" in out or "SignalException" in out
+    print(f"data parallel (c): training CLI under python -m torch.distributed.run "
+          f"--nproc_per_node 1 (NCCL), SIGTERM to the launcher's process group after step "
+          f"{SIGTERM_AFTER}'s record: launcher exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s, the trainer stopped cleanly at step {k} {clean}, "
+          f"newest checkpoint {mgr.latest_step()}; on {smi}")
+    if not (clean and mgr.latest_step() == k and k < RESUME_STEPS
+            and (proc.returncode == 0 or (proc.returncode == 1 and forwarded))):
+        fail(f"SIGTERM under the launcher: exit {proc.returncode}, clean {clean}, last step {k}, "
+             f"checkpoint {mgr.latest_step()}:\n{out[-4000:]}")
+    both = run_train_cli(args, root, name, launcher=LAUNCHER)
+    pos = lambda r: (r["step"], r["epoch"], r["batch"], r["index"])  # noqa: E731
+    want = [pos(r) for r in train_tree["sf"] if r["step"] <= RESUME_STEPS]
+    print(f"data parallel (c): resumed under the launcher; (step, epoch, batch, indices) "
+          f"{[pos(r) for r in both]}; phase 9's uninterrupted run {want}")
+    if [pos(r) for r in both] != want:
+        fail("the stopped and resumed run under the launcher took other data")
+    launches = STEP_LAUNCHES[TRAIN_FRAMES]
+    for r in both:
+        if r["launches"] != launches or not np.isfinite(r["live_loss"]):
+            fail(f"(c) step {r['step']}: launches {r['launches']} (want {launches}), "
+                 f"loss {r['live_loss']}")
+    # Two processes' records: each one's first step pays for its start.
+    print(f"data parallel (c): launches {launches} on each step; ms between the steps' "
+          f"records {[round(r['wall_ms'], 1) for r in both]}, peak "
+          f"{max(r['peak_gib'] for r in both):.3f} GiB; on {smi}")
+    return {n: sum(r["launches"][n] for r in both) for n in launches}
+
+
+def ddp_launcher_eval(smi: str, eval_tree: dict) -> None:
+    """(d) The evaluation CLI with --sharded under the launcher on phase 8's
+    TartanAir tree and weights, against phase 8's in-process results."""
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, *LAUNCHER, "-m", "tcs_tpu_torch.cli.evaluate",
+                          "--dataset", "TartanAir", "--data_root", eval_tree["root"],
+                          "--restore_ckpt", eval_tree["pth"], "--valid_iters", str(EVAL_ITERS),
+                          "--sharded"], capture_output=True, text=True, timeout=600)
+    with open(os.path.join("runs", "eval_sharded.log"), "w") as f:
+        f.write(cli.stdout + cli.stderr)
+    print(f"data parallel (d): evaluation CLI --sharded under the launcher: exit "
+          f"{cli.returncode} in {time.perf_counter() - t0:.2f} s (log: runs/eval_sharded.log)")
+    if cli.returncode != 0:
+        fail(f"the sharded evaluation CLI exited {cli.returncode}:\n{cli.stderr[-4000:]}")
+    got = json.loads(cli.stdout.strip().splitlines()[-1])
+    want = eval_tree["results"]
+    print(f"data parallel (d): {json.dumps(got)}; equal to phase 8's in-process results bit "
+          f"for bit {got == want}; on {smi}")
+    if got != want:
+        fail(f"the sharded evaluation CLI's results {got} differ from phase 8's {want}")
+
+
+def phase_data_parallel(smi: str, train_ms: float, eval_tree: dict, train_tree: dict) -> dict:
+    """Phase 10; returns the kernels' launches of the DDP path's runs, (a)'s
+    steps and (c)'s CLI steps."""
+    t_phase = time.perf_counter()
+    counts = ddp_world_one(smi, train_ms)
+    want = one_process_on_eight(smi)
+    ddp_pair(smi, "gloo", ("cuda:0", "cuda:0"), want,
+             "(b) two ranks on one card over Gloo: not a scaling number")
+    cli_counts = ddp_launcher_cli(smi, train_tree)
+    ddp_launcher_eval(smi, eval_tree)
+    if torch.cuda.device_count() >= 2:
+        ddp_pair(smi, "nccl", ("cuda:0", "cuda:1"), want, "(e) across two cards over NCCL")
+    else:
+        print(f"ddp across cards: not run ({torch.cuda.device_count()} card)")
+    for tree in (eval_tree, train_tree):
+        tree["tmp_dir"].cleanup()
+    print(f"data parallel: phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: counts[k] + cli_counts[k] for k in counts}
 
 
 def main() -> None:
@@ -1480,8 +1803,9 @@ def main() -> None:
     paths = {"inference": phase_main_path(smi), "op_gradients": phase_op_gradients()}
     phase_small_gradient_parity()
     paths["training"], train_ms = phase_training_path(smi)
-    paths["evaluation"] = phase_evaluators(smi)
-    paths["training_from_files"] = phase_training_from_files(smi, train_ms)
+    paths["evaluation"], eval_tree = phase_evaluators(smi)
+    paths["training_from_files"], train_tree = phase_training_from_files(smi, train_ms)
+    paths["data_parallel"] = phase_data_parallel(smi, train_ms, eval_tree, train_tree)
     # `launches` sums the driven paths, each of which set the counts to 0
     # before it and read them after. The times and the bound are at the
     # shapes of the path that launches the kernel most, in the type it runs

@@ -7,10 +7,16 @@ Examples:
   python -m tcs_tpu_torch.cli.evaluate --dataset things --restore_ckpt sceneflow.pth
   python -m tcs_tpu_torch.cli.evaluate --dataset kitti --restore_ckpt kitti.pth
   python -m tcs_tpu_torch.cli.evaluate --dataset TartanAir --device cpu
+  python -m torch.distributed.run --nproc_per_node 2 -m tcs_tpu_torch.cli.evaluate \
+      --dataset TartanAir --sharded --restore_ckpt tartanair.pth
 
 ``--restore_ckpt`` takes a ``.pth`` file in the reference's format
 (:mod:`tcs_tpu_torch.utils.checkpoint`); without it the model keeps weights
-drawn from seed 0. The result dict is printed as the last line, in JSON.
+drawn from seed 0. ``--sharded`` under ``python -m torch.distributed.run``
+streams each process's share of the sequences on its own card and gives the
+single-process results (``evaluate.py``); without the launcher it is the
+single-process run. The result dict is printed as the last line, in JSON, by
+the first process.
 """
 
 from __future__ import annotations
@@ -32,7 +38,10 @@ def parse_args(argv=None):
     p.add_argument("--valid_iters", type=int, default=5)
     p.add_argument("--max_sequences", type=int, default=None)
     p.add_argument("--device", default="cuda",
-                   help="'cuda' (the default) or 'cpu'")
+                   help="'cuda' (the default: this process's card) or 'cpu'")
+    p.add_argument("--sharded", action="store_true",
+                   help="share the sequences over the processes of python -m "
+                        "torch.distributed.run, one stream each")
     # Architecture choices, as the reference duplicates them between its
     # train and evaluation CLIs (evaluate_stereo.py:354-373): a checkpoint
     # trained with non-default architecture flags needs the same flags to
@@ -84,29 +93,37 @@ def main(argv=None):
 
     from tcs_tpu_torch import evaluate as ev
     from tcs_tpu_torch.models import TCStereo
+    from tcs_tpu_torch.parallel import mesh
     from tcs_tpu_torch.utils.checkpoint import load_weights
 
-    cfg = build_model_config(args)
-    model = TCStereo(cfg, device=args.device)
-    n = sum(p.numel() for p in model.parameters())
-    print(f"The model has {n / 1e6:.2f}M learnable parameters.")
-    if args.restore_ckpt:
-        load_weights(model, args.restore_ckpt)
-        print(f"Loaded checkpoint {args.restore_ckpt}")
+    if args.sharded:
+        mesh.initialize_distributed(*mesh.launcher_args(), device=args.device)
+    try:
+        device = mesh.local_device(args.device)
+        cfg = build_model_config(args)
+        model = TCStereo(cfg, device=device)
+        n = sum(p.numel() for p in model.parameters())
+        print(f"The model has {n / 1e6:.2f}M learnable parameters.")
+        if args.restore_ckpt:
+            load_weights(model, args.restore_ckpt)
+            print(f"Loaded checkpoint {args.restore_ckpt}")
 
-    common = dict(iters=args.valid_iters, device=args.device)
-    if args.dataset == "TartanAir":
-        results = ev.validate_tartanair(model, cfg, root=args.data_root,
-                                        max_sequences=args.max_sequences, **common)
-    elif args.dataset == "things":
-        results = ev.validate_temporal_things(model, cfg, root=args.data_root,
-                                              max_sequences=args.max_sequences,
-                                              **common)
-    else:
-        results = ev.submit_kitti(model, cfg, root=os.path.join(args.data_root, "KITTI"),
-                                  **common)
-    print(json.dumps(results))
-    return results
+        common = dict(iters=args.valid_iters, device=device, sharded=mesh.active())
+        if args.dataset == "TartanAir":
+            results = ev.validate_tartanair(model, cfg, root=args.data_root,
+                                            max_sequences=args.max_sequences, **common)
+        elif args.dataset == "things":
+            results = ev.validate_temporal_things(model, cfg, root=args.data_root,
+                                                  max_sequences=args.max_sequences,
+                                                  **common)
+        else:
+            results = ev.submit_kitti(model, cfg, root=os.path.join(args.data_root, "KITTI"),
+                                      **common)
+        if mesh.is_primary():
+            print(json.dumps(results))
+        return results
+    finally:
+        mesh.destroy()
 
 
 if __name__ == "__main__":

@@ -5,15 +5,20 @@ Examples:
   python -m tcs_tpu_torch.cli.train --recipe sceneflow --data_root /data
   python -m tcs_tpu_torch.cli.train --recipe TartanAir
   python -m tcs_tpu_torch.cli.train --recipe kitti_raw --restore_ckpt tartanair.pth
+  python -m torch.distributed.run --nproc_per_node 2 -m tcs_tpu_torch.cli.train \
+      --recipe sceneflow
 
 ``scripts/train.py``'s flags, less its TPU formulation flags
 (``--frame_parallel_backward``, ``--frame_inline_backward``: the port has
-one formulation) and its multi-host flags (``--coordinator``,
-``--num_processes``, ``--process_id``: they come back with DDP). Added:
+one formulation). Data parallelism runs one process per card
+(``parallel/mesh.py``): ``--coordinator host:port --num_processes N
+--process_id R`` on each, or the environment that ``python -m
+torch.distributed.run`` gives its processes when the flags are absent;
+``--batch_size`` is per process, as in ``tcs_tpu`` and the reference. Added:
 ``--validation_frequency`` (the checkpoint cadence, which ``TrainConfig``
 has and ``scripts/train.py`` cannot set) and ``--device`` ('cuda', the
-default, or 'cpu'). A run that a SIGTERM stops checkpoints and exits 0; the
-same command resumes it.
+default, which is each process's own card, or 'cpu'). A run that a SIGTERM
+stops checkpoints and exits 0; the same command resumes it.
 """
 
 from __future__ import annotations
@@ -85,8 +90,24 @@ def parse_args(argv=None):
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--validate", action="store_true",
                    help="run the recipe's validation at each checkpoint")
-    p.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (the default: this process's card) or 'cpu'")
+    # data parallelism, one process per card
+    p.add_argument("--coordinator", default=None, help="host:port of rank 0's rendezvous")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     return p.parse_args(argv)
+
+
+def process_group_args(args):
+    """(coordinator, num_processes, process_id) for
+    ``parallel.mesh.initialize_distributed``: the flags, or else the
+    launcher's environment, or else (None, None, None), one process."""
+    if args.num_processes is not None:
+        return args.coordinator, args.num_processes, args.process_id
+    from tcs_tpu_torch.parallel import mesh
+
+    return mesh.launcher_args()
 
 
 def build_config(args):
@@ -137,18 +158,24 @@ def main(argv=None):
     cfg = build_config(args)
 
     from tcs_tpu_torch import evaluate as ev
+    from tcs_tpu_torch.parallel import mesh
     from tcs_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(cfg, device=args.device, use_wandb=args.wandb)
-    validate_fn = None
-    if args.validate:
-        kw = dict(iters=cfg.valid_iters, root=cfg.data_root, device=args.device,
-                  metrics_logger=trainer.logger, log_images=2 if args.wandb else 0)
-        if args.recipe == "TartanAir":
-            validate_fn = lambda m, c: ev.validate_tartanair(m, c, **kw)  # noqa: E731
-        elif args.recipe == "sceneflow":
-            validate_fn = lambda m, c: ev.validate_temporal_things(m, c, **kw)  # noqa: E731
-    return trainer.train(validate_fn=validate_fn)
+    mesh.initialize_distributed(*process_group_args(args), device=args.device)
+    try:
+        trainer = Trainer(cfg, device=args.device, use_wandb=args.wandb)
+        validate_fn = None
+        if args.validate:
+            kw = dict(iters=cfg.valid_iters, root=cfg.data_root, device=trainer.device,
+                      metrics_logger=trainer.logger, log_images=2 if args.wandb else 0,
+                      sharded=mesh.active())
+            if args.recipe == "TartanAir":
+                validate_fn = lambda m, c: ev.validate_tartanair(m, c, **kw)  # noqa: E731
+            elif args.recipe == "sceneflow":
+                validate_fn = lambda m, c: ev.validate_temporal_things(m, c, **kw)  # noqa: E731
+        return trainer.train(validate_fn=validate_fn)
+    finally:
+        mesh.destroy()
 
 
 if __name__ == "__main__":

@@ -163,14 +163,14 @@ class SequenceLoader:
         """Reshuffle for ``epoch`` (DistributedSampler.set_epoch)."""
         self.epoch = epoch
 
-    def _epoch_indices(self, epoch: int) -> np.ndarray:
+    def _epoch_indices(self, epoch: int, shard_id: Optional[int] = None) -> np.ndarray:
         n = len(self.dataset)
         rng = np.random.default_rng((self.seed, epoch))
         perm = rng.permutation(n)
         # pad so every shard sees the same number of samples
         per_shard = -(-n // self.num_shards)
         padded = np.concatenate([perm, perm[: per_shard * self.num_shards - n]])
-        return padded[self.shard_id:: self.num_shards]
+        return padded[self.shard_id if shard_id is None else shard_id:: self.num_shards]
 
     def __len__(self):
         return -(-len(self.dataset) // self.num_shards) // self.batch_size
@@ -181,6 +181,14 @@ class SequenceLoader:
         indices = self._epoch_indices(self.epoch if epoch is None else epoch)
         return [indices[i * self.batch_size:(i + 1) * self.batch_size]
                 for i in range(len(self))]
+
+    def global_batch(self, epoch: int, k: int) -> np.ndarray:
+        """The global sample indices of batch ``k`` of ``epoch`` over every
+        shard, in shard order: the batch that one process would take for
+        all the ranks together."""
+        b = self.batch_size
+        return np.concatenate([self._epoch_indices(epoch, s)[k * b:(k + 1) * b]
+                               for s in range(self.num_shards)])
 
     def _plan(self, epoch: int, start_batch: int):
         """(epoch, batch, indices) from batch ``start_batch`` of ``epoch`` on,

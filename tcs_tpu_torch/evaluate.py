@@ -15,9 +15,17 @@ are padded to /32 with the K-tracking :class:`InputPadder`. The evaluators:
 
 They take the port's ``TCStereo`` with its weights and a ``device`` that
 defaults to the GPU. The aggregation is ``tcs_tpu``'s: D1/D3 weighted by the
-valid rate, temporal pairs only between frames ``j - 1`` and ``j``. One
-stream runs at a time; the mesh path of ``tcs_tpu`` becomes DDP with the
-trainer (ROADMAP Queue 1, item 3).
+valid rate, temporal pairs only between frames ``j - 1`` and ``j``.
+
+With ``sharded=True`` under a process group (``parallel.mesh``), rank r
+streams the sequences r, r + W, ... one at a time at batch 1, and every rank
+gathers the frames' rows and aggregates them in the serial order: the
+results equal the single-process run's bit for bit. ``tcs_tpu``'s mesh path
+(``tcs_tpu/evaluate.py:183-227``) stacks one stream per device into one
+batch and pads a short chunk with its last sequence, so under
+``context_norm="batch"`` its batch norm mixes the streams and the padding,
+against its own promise of the serial path's metrics; the port does not copy
+that.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from tcs_tpu_torch.data.datasets import (
     tartanair_test_keywords,
 )
 from tcs_tpu_torch.models.tc_stereo import CameraParams, TCStereo, TemporalState
+from tcs_tpu_torch.parallel import mesh
 from tcs_tpu_torch.utils.padder import InputPadder
 from tcs_tpu_torch.utils.visualization import pseudo_color_map
 
@@ -180,34 +189,57 @@ def metric_bounds(frames, tol: float, prefix: str, temporal: bool = True,
     return out
 
 
+def _shard(n: int, sharded: bool) -> range:
+    """The indices of ``n`` sequences that this rank streams."""
+    return range(mesh.rank(), n, mesh.world_size()) if sharded else range(n)
+
+
+def _gathered(items: list, sharded: bool) -> list:
+    """Every rank's ``items``, in rank order, on every rank."""
+    if not sharded or mesh.world_size() == 1:
+        return items
+    parts = [None] * mesh.world_size()
+    torch.distributed.all_gather_object(parts, items)
+    return [x for part in parts for x in part]
+
+
 def _evaluate_sequences(ev: TemporalEvaluator, seqs: List[Dict],
-                        max_frames: Optional[int], on_frame) -> None:
+                        max_frames: Optional[int], on_frame, sharded: bool = False) -> list:
     """Drive each sequence through the evaluator frame by frame, the state
-    reset at its start (``tcs_tpu/evaluate.py:183-227`` on one device).
+    reset at its start; returns what ``on_frame`` returned for each frame,
+    in the serial order (sequence, then frame).
 
     seqs: dicts with img1s/img2s/disps/poses lists + K (3,3), baseline
     (float) and read_gt(path) -> np.ndarray.
-    on_frame(seq_index, frame_index, disp, disp_gt) collects metrics.
+    on_frame(seq_index, frame_index, disp, disp_gt) gives the frame's rows,
+    a picklable value. With ``sharded`` each rank streams its share of the
+    sequences (module docstring) and the rows of every rank come back.
     """
-    for si, s in enumerate(seqs):
+    rows = []
+    for si in _shard(len(seqs), sharded):
+        s = seqs[si]
         n = min(len(s["img1s"]), max_frames if max_frames else 10**9)
         ev.reset()
         for j in range(n):
             disp = ev(frame_utils.read_image(s["img1s"][j]).astype(np.float32),
                       frame_utils.read_image(s["img2s"][j]).astype(np.float32),
                       s["K"], s["baseline"], np.asarray(s["poses"][j], np.float32))
-            on_frame(si, j, disp, s["read_gt"](s["disps"][j]))
+            rows.append(((si, j), on_frame(si, j, disp, s["read_gt"](s["disps"][j]))))
+    return [r for _, r in sorted(_gathered(rows, sharded), key=lambda x: x[0])]
 
 
 def validate_tartanair(model: TCStereo, cfg: ModelConfig, iters: int = 5,
                        root: str = "datasets", max_sequences: Optional[int] = None,
                        max_frames: Optional[int] = None, metrics_logger=None,
-                       log_images: int = 0, device=None) -> Dict[str, float]:
+                       log_images: int = 0, device=None,
+                       sharded: bool = False) -> Dict[str, float]:
     """Reference ``validate_tartanair`` (:120): 20 held-out sequences.
 
     With ``metrics_logger`` and ``log_images`` > 0, the first frame of the
     first ``log_images`` sequences emits a coloured error map (the
-    reference's ``logErrorMap``, core/utils/visualization.py:147-179)."""
+    reference's ``logErrorMap``, core/utils/visualization.py:147-179), on
+    the rank that streams it. ``sharded``: the sequences shared over the
+    process group's ranks (module docstring)."""
     ds = TartanAir(None, root=root, scene_list=[],
                    test_keywords=tartanair_test_keywords(), is_test=True,
                    mode="temporal", load_flow=False)
@@ -223,24 +255,22 @@ def validate_tartanair(model: TCStereo, cfg: ModelConfig, iters: int = 5,
         seqs.append(dict(img1s=img1s, img2s=img2s, disps=disps, poses=poses,
                          K=TARTANAIR_TEST_K, baseline=0.25, read_gt=read_gt))
 
-    rows, tc_rows = [], []
     prev = {}  # seq index -> (prev_disp, prev_gt, frame index)
 
     def on_frame(si, j, disp, disp_gt):
-        m = _epe_metrics(disp, disp_gt)
-        if m:
-            rows.append(m)
         if metrics_logger is not None and j == 0 and si < log_images:
             metrics_logger.log_error_map(
                 f"val/tartanair_error_seq{si}", disp, disp_gt)
+        tc = None
         if si in prev and prev[si][2] == j - 1:
             tc = temporal_consistency_metrics(prev[si][0], disp,
                                               prev[si][1], disp_gt)
-            if tc:
-                tc_rows.append(tc)
         prev[si] = (disp, disp_gt, j)
+        return _epe_metrics(disp, disp_gt), tc
 
-    _evaluate_sequences(ev, seqs, max_frames, on_frame)
+    frames = _evaluate_sequences(ev, seqs, max_frames, on_frame, sharded)
+    rows = [m for m, _ in frames if m]
+    tc_rows = [tc for _, tc in frames if tc]
     results = _aggregate(rows, "TartanAir")
     if tc_rows:
         results["TartanAir-tc-dd3"] = 100.0 * float(
@@ -255,9 +285,10 @@ def validate_temporal_things(model: TCStereo, cfg: ModelConfig, iters: int = 5,
                              root: str = "datasets",
                              max_sequences: Optional[int] = None,
                              metrics_logger=None, log_images: int = 0,
-                             device=None) -> Dict[str, float]:
+                             device=None, sharded: bool = False) -> Dict[str, float]:
     """Reference ``validate_temporal_things`` (:265): FlyingThings TEST;
-    ``metrics_logger``/``log_images`` as in :func:`validate_tartanair`."""
+    ``metrics_logger``/``log_images`` and ``sharded`` as in
+    :func:`validate_tartanair`."""
     ds = SceneFlowDatasets(None, root=root, dstype="frames_cleanpass",
                            things_test=True, mode="temporal")
     ev = TemporalEvaluator(model, cfg, iters, device=device)
@@ -272,16 +303,13 @@ def validate_temporal_things(model: TCStereo, cfg: ModelConfig, iters: int = 5,
         seqs.append(dict(img1s=img1s, img2s=img2s, disps=disps, poses=poses,
                          K=SCENEFLOW_TEST_K, baseline=1.0, read_gt=read_gt))
 
-    rows = []
-
     def on_frame(si, j, disp, gt):
-        rows.append(_epe_metrics(disp, gt) or None)
         if metrics_logger is not None and j == 0 and si < log_images:
             metrics_logger.log_error_map(
                 f"val/things_error_seq{si}", disp, gt)
+        return _epe_metrics(disp, gt)
 
-    _evaluate_sequences(ev, seqs, None, on_frame)
-    rows = [r for r in rows if r]
+    rows = [r for r in _evaluate_sequences(ev, seqs, None, on_frame, sharded) if r]
     results = _aggregate(rows, "things")
     logger.info("Validation FlyingThings: %s", results)
     return results
@@ -291,18 +319,21 @@ def submit_kitti(model: TCStereo, cfg: ModelConfig, iters: int = 5,
                  root: str = "datasets/KITTI",
                  image_set: str = "kitti_seq/kitti2015_testings",
                  out_dir: str = "./kitti_15_seq_out", submission: bool = True,
-                 num_frames: int = 11, device=None) -> Dict[str, float]:
+                 num_frames: int = 11, device=None, sharded: bool = False
+                 ) -> Dict[str, float]:
     """Reference ``submit_kitti`` (:28): per-scene intrinsics, fixed baseline
     0.54, FPS timing (scenes after the 51st, frames after the 7th), frame 10
     as a uint16 PNG ×256, or with ``submission=False`` one pseudo-colour PNG
     per frame under ``video/<scene>/`` (the reference's MJPG ``.avi`` needs
-    OpenCV; ROADMAP)."""
+    OpenCV; ROADMAP). ``sharded``: each rank of the process group streams
+    and writes its share of the scenes, and the FPS is over every rank's
+    timed frames."""
     ds = KITTI(None, root=root, is_test=True, mode="temporal",
                image_set=image_set, index_by_scene=True,
                num_frames=num_frames if submission else 21)
     ev = TemporalEvaluator(model, cfg, iters, device=device)
     elapsed = []
-    for val_id in range(len(ds)):
+    for val_id in _shard(len(ds), sharded):
         img1s, img2s, scene_path, poses = ds.test_sequence(val_id)
         scene = os.path.basename(scene_path)
         calib = frame_utils.read_calib_file(os.path.join(scene_path, scene + ".txt"))
@@ -326,6 +357,7 @@ def submit_kitti(model: TCStereo, cfg: ModelConfig, iters: int = 5,
                 os.makedirs(png_dir, exist_ok=True)
                 png.write_png(os.path.join(png_dir, f"{frame_ind:06d}.png"),
                               pseudo_color_map(disp, vmin=0, vmax=96, kitti_style=True))
+    elapsed = _gathered(elapsed, sharded)
     fps = 1.0 / (np.mean(elapsed) + 1e-5) if elapsed else 0.0
     logger.info("Submission KITTI: %.2f FPS", fps)
     return {"kitti-fps": float(fps)}

@@ -88,16 +88,38 @@ class BatchNorm(nn.Module):
     ``nn.BatchNorm2d`` would read running averages in ``eval()``, which
     ``tcs_tpu`` never does, so test mode would compute another function.
     Statistics in fp32, biased variance, eps 1e-5.
+
+    Under data parallelism (``parallel.mesh.wrap`` sets ``process_group``)
+    the statistics in training are the global batch's, as ``tcs_tpu``'s
+    over its sharded batch: the count and the sum, then the sum of squared
+    deviations from the global mean, each summed over the ranks through a
+    differentiable all-reduce. Under ``no_grad`` (test mode, where each rank
+    streams sequences of its own) the statistics stay this batch's.
     """
 
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.process_group = None
 
     def forward(self, x):
+        if self.process_group is not None and torch.is_grad_enabled():
+            return self._over_group(x.float()).to(x.dtype)
         return F.batch_norm(x.float(), None, None, self.weight, self.bias,
                             training=True, momentum=0.0, eps=1e-5).to(x.dtype)
+
+    def _over_group(self, x):
+        from torch.distributed.nn.functional import all_reduce
+
+        shape = (1, -1, 1, 1)
+        local = torch.cat([x.new_full((1,), x.numel() / x.shape[1]), x.sum(dim=(0, 2, 3))])
+        total = all_reduce(local, group=self.process_group)
+        count, mean = total[0], total[1:] / total[0]
+        centred = x - mean.view(shape)
+        var = all_reduce((centred * centred).sum(dim=(0, 2, 3)), group=self.process_group) / count
+        return (centred * torch.rsqrt(var + 1e-5).view(shape) * self.weight.view(shape)
+                + self.bias.view(shape))
 
 
 def make_norm(norm_fn: str, channels: int) -> nn.Module:

@@ -17,6 +17,7 @@ Semantics (as in the JAX package and the reference):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -65,14 +66,21 @@ def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 def _linear_resize_weights(in_size: int, out_size: int, device):
     """align_corners=True source positions → (idx0, idx1, frac).
 
-    Positions i·(in−1)/(out−1) are rounded once to fp32 from float64; the
-    JAX package's fp32 ``linspace`` lands within an ulp of them.
+    The positions are those of ``tcs_tpu``'s fp32 ``jnp.linspace(0, in − 1,
+    out)`` (``tcs_tpu/ops/sampler.py:99-110``) as XLA compiles it: position
+    i < out − 1 is i·c with c = (in − 1)·(1 / (out − 1)), each operation
+    rounded to fp32 (XLA turns the division into a product by the
+    reciprocal and folds the constants), and the last is in − 1; equal on
+    every size pair tried. A position an ulp away changes where the weights
+    of an all-valid footprint sum to exactly 1, which the losses' ``== 1.0``
+    masks of sparse ground truth read.
     """
     if out_size == 1 or in_size == 1:
         pos = torch.zeros(out_size, device=device)
     else:
-        pos = (torch.arange(out_size, dtype=torch.float64, device=device)
-               * ((in_size - 1) / (out_size - 1))).float()
+        c = float(np.float32(in_size - 1) * (np.float32(1.0) / np.float32(out_size - 1)))
+        pos = torch.arange(out_size, dtype=torch.float32, device=device) * c
+        pos[-1] = in_size - 1
     i0 = torch.floor(pos).clamp(0, in_size - 1).long()
     i1 = (i0 + 1).clamp(max=in_size - 1)
     return i0, i1, pos - i0.float()

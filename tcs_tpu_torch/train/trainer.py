@@ -6,9 +6,17 @@ train step; resumes from the newest full checkpoint of the run, or else
 starts from ``restore_ckpt``'s weights; trains, checkpointing every
 ``validation_frequency`` steps while the failure detector is clean and then
 calling the ``validate_fn`` hook; checkpoints and returns on SIGTERM; saves a
-final checkpoint. One process, one device: data parallelism over several
-(DDP) is not ported yet, and the trainer refuses a process group of more
-than one rank.
+final checkpoint.
+
+Under a process group (``parallel.mesh``, one process per card) the trainer
+trains the model under DDP on ``tcs_tpu``'s global batch: each rank's loader
+takes shard ``rank`` of ``world size`` with ``batch_size`` samples a batch,
+and the step computes the losses, batch norm and metrics of the ranks'
+batches stacked. Every decision reads the metrics summed over the ranks, so
+every rank takes the same branch: the failure detector, and the SIGTERM
+flag, which goes into that sum, so that a signal to any rank stops every
+rank after the same step. Rank 0 alone writes the checkpoints and the
+records; every rank restores the same checkpoint.
 
 Three faults of ``tcs_tpu``'s trainer are not copied:
 - resume: ``tcs_tpu`` restores the step but starts the data at epoch 1
@@ -21,7 +29,8 @@ Three faults of ``tcs_tpu``'s trainer are not copied:
   resumes the run, and takes ``restore_ckpt`` only when the run has none.
 
 Each step appends one record to ``<checkpoint_dir>/<name>_steps.jsonl``: the
-step, the loader's epoch, batch and sample indices, the host time blocked
+step, the loader's epoch, batch and the global batch's sample indices (every
+rank's, in rank order), the host time blocked
 waiting for the loader (``data_wait_ms``), queueing the batch's copy to the
 device (``h2d_ms``; the loader has put it in pinned memory), the step up to its metrics on the host
 (``step_ms``), all three with the record's writing (``wall_ms``), the
@@ -30,6 +39,7 @@ kernels' launches, the loss, the gradient norm and the device's peak memory.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -37,14 +47,12 @@ import signal
 import time
 from typing import Callable, Dict, Optional
 
-import torch
-
 from tcs_tpu_torch.config import TrainConfig
 from tcs_tpu_torch.data.datasets import fetch_dataset
 from tcs_tpu_torch.data.loader import SequenceLoader
-from tcs_tpu_torch.device import resolve
 from tcs_tpu_torch.models import TCStereo
 from tcs_tpu_torch.ops import _kernels
+from tcs_tpu_torch.parallel import mesh
 from tcs_tpu_torch.train.train_step import SequenceBatch, make_train_step
 from tcs_tpu_torch.utils.checkpoint import CheckpointManager, load_weights
 from tcs_tpu_torch.utils.debug import FailureDetector
@@ -56,14 +64,12 @@ logger = logging.getLogger(__name__)
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, device=None, use_wandb: bool = False):
-        if (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise RuntimeError("the trainer runs as one process on one device; data "
-                               "parallelism over several ranks (DDP) is not ported yet")
+        """``device``: 'cuda' (the default: this rank's card) or 'cpu'."""
         self.cfg = cfg
-        self.device = resolve(device)
+        self.device = mesh.local_device("cuda" if device is None else device)
+        # every rank draws the same weights: DDP's broadcast changes nothing
         self.model = TCStereo(cfg.model, device=self.device, seed=cfg.seed)
-        self.step_fn = make_train_step(self.model, cfg)
+        self.step_fn = make_train_step(mesh.wrap(self.model), cfg)
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
         self.ckpt = CheckpointManager(os.path.join(cfg.checkpoint_dir, cfg.name))
         self.steps_path = os.path.join(cfg.checkpoint_dir, f"{cfg.name}_steps.jsonl")
@@ -76,7 +82,7 @@ class Trainer:
         """(step, epoch, batch) to start from, with the model, optimiser and
         schedule restored where the run has a checkpoint."""
         if self.ckpt.latest_step() is not None:
-            s = self.ckpt.restore(self.model, self.step_fn.optimizer, self.step_fn.scheduler)
+            s = self._restore()
             logger.info("Resumed at step %d (epoch %d, batch %d)", s["step"], s["epoch"],
                         s["batch"])
             return s["step"], s["epoch"], s["batch"]
@@ -89,6 +95,10 @@ class Trainer:
             logger.info("Restored weights from %s", path)
         return 0, 1, 0
 
+    def _restore(self) -> Dict:
+        return self.ckpt.restore(self.model, self.step_fn.optimizer, self.step_fn.scheduler,
+                                 map_location=self.device)
+
     def _save(self, step: int, epoch: int, batch: int) -> None:
         self.ckpt.save(step, self.model, self.step_fn.optimizer, self.step_fn.scheduler,
                        epoch, batch, self.cfg)
@@ -97,20 +107,24 @@ class Trainer:
               validate_fn: Optional[Callable[[TCStereo, object], Dict]] = None) -> Dict:
         """Train to ``max_steps`` (the config's ``num_steps`` by default);
         returns where it stopped: step, epoch, batch and whether a SIGTERM
-        stopped it. ``validate_fn(model, model_cfg)`` returns a metric dict."""
+        stopped it. ``validate_fn(model, model_cfg)`` returns a metric dict;
+        under a process group every rank calls it (the evaluators shard their
+        sequences over the ranks)."""
         cfg = self.cfg
         num_steps = max_steps or cfg.num_steps
         step, epoch, position = self.init_state()
         dataset = dataset if dataset is not None else fetch_dataset(cfg)
         loader = SequenceLoader(dataset, batch_size=cfg.batch_size, seed=cfg.seed,
+                                shard_id=mesh.rank(), num_shards=mesh.world_size(),
                                 num_workers=cfg.num_workers,
                                 pin_memory=self.device.type == "cuda")
         detector = FailureDetector(patience=3)
         timer = StepTimer()
-        preempted = {"flag": False}
+        signalled = {"flag": False}  # on this rank
+        stop = False  # on any rank, read with the step's metrics
 
         def on_sigterm(signum, frame):
-            preempted["flag"] = True
+            signalled["flag"] = True
 
         try:
             prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
@@ -118,18 +132,20 @@ class Trainer:
             prev_handler = None
         t_start = last = time.perf_counter()
         try:
-            with loader, open(self.steps_path, "a") as record_file:
+            with loader, (open(self.steps_path, "a") if mesh.is_primary()
+                          else contextlib.nullcontext()) as record_file:
                 batches = loader.stream(epoch, position)
                 try:
-                    while step < num_steps and not preempted["flag"]:
+                    while step < num_steps and not stop:
                         t0 = time.perf_counter()
                         epoch, k, np_batch = next(batches)
                         t1 = time.perf_counter()
                         batch = SequenceBatch.from_loader(np_batch, self.device)
                         t2 = time.perf_counter()
                         before = dict(_kernels.launches)
-                        metrics = self.step_fn(batch)
-                        healthy = detector.update(metrics)  # reads them: waits for the step
+                        metrics = self.step_fn(batch, extra={"sigterm": signalled["flag"]})
+                        stop = float(metrics.pop("sigterm")) > 0  # waits for the step
+                        healthy = detector.update(metrics)
                         t3 = time.perf_counter()
                         step, position = step + 1, k + 1
                         timer.tick()
@@ -137,7 +153,7 @@ class Trainer:
                         memory = device_memory_stats(self.device)
                         record = {
                             "step": step, "epoch": epoch, "batch": k,
-                            "index": np_batch["index"].tolist(),
+                            "index": loader.global_batch(epoch, k).tolist(),
                             "data_wait_ms": 1e3 * (t1 - t0), "h2d_ms": 1e3 * (t2 - t1),
                             "step_ms": 1e3 * (t3 - t2),
                             "launches": {n: v - before[n] for n, v in _kernels.launches.items()},
@@ -145,8 +161,9 @@ class Trainer:
                             "grad_norm": float(metrics["grad_norm"]),
                             "peak_gib": (memory["peak_allocated"] / 2**30 if memory else None)}
                         record["wall_ms"] = 1e3 * (time.perf_counter() - last)
-                        record_file.write(json.dumps(record) + "\n")
-                        record_file.flush()
+                        if record_file is not None:
+                            record_file.write(json.dumps(record) + "\n")
+                            record_file.flush()
                         last = time.perf_counter()
                         if not healthy:
                             if self.ckpt.latest_step() is None:
@@ -154,14 +171,13 @@ class Trainer:
                                     f"training diverged at step {step} (loss "
                                     f"{record['live_loss']}, grad norm {record['grad_norm']})"
                                     " before any checkpoint was written; nothing to go back to")
-                            s = self.ckpt.restore(self.model, self.step_fn.optimizer,
-                                                  self.step_fn.scheduler)
+                            s = self._restore()
                             logger.error("divergence at step %d: back to the checkpoint of "
                                          "step %d, the data goes on", step, s["step"])
                             step = s["step"]
                             detector.consecutive_bad = 0
                         vf = cfg.validation_frequency
-                        if not preempted["flag"] and step % vf == vf - 1:
+                        if not stop and step % vf == vf - 1:
                             # never checkpoint a state the detector doubts
                             if healthy and detector.consecutive_bad == 0:
                                 self._save(step, epoch, position)
@@ -172,10 +188,9 @@ class Trainer:
         finally:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
-        if preempted["flag"]:
+        if stop:
             logger.warning("SIGTERM: checkpointing at step %d and stopping", step)
         self._save(step, epoch, position)
         logger.info("Stopped at step %d after %.1f s (%.3f steps/s over the later steps)",
                     step, time.perf_counter() - t_start, timer.steps_per_second)
-        return {"step": step, "epoch": epoch, "batch": position,
-                "preempted": preempted["flag"]}
+        return {"step": step, "epoch": epoch, "batch": position, "preempted": stop}

@@ -20,7 +20,10 @@ they read a weights file, beside the optimiser, the schedule, the step, the
 loader's epoch and batch, and the run's config. Where ``tcs_tpu`` keeps its
 state with Orbax (``tcs_tpu/utils/checkpoint.py:19-80``), the port writes
 each file under a temporary name, flushes it to disk and renames it, so a
-run stopped in the middle of a save leaves the last checkpoint whole.
+run stopped in the middle of a save leaves the last checkpoint whole. Under a
+process group (``parallel.mesh``) every rank calls ``save``: rank 0 alone
+writes, and the ranks meet at a barrier after it, so that each then reads
+the same newest checkpoint.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn as nn
+
+from tcs_tpu_torch.parallel import mesh
 
 logger = logging.getLogger(__name__)
 
@@ -102,7 +107,15 @@ class CheckpointManager:
     def save(self, step: int, model: nn.Module, optimizer, scheduler, epoch: int,
              batch: int, config: Any) -> str:
         """Write the state after ``step`` updates; the loader is to go on at
-        batch ``batch`` of ``epoch``. Returns the file's path."""
+        batch ``batch`` of ``epoch``. Returns the file's path. On rank 0 of a
+        process group only, and every rank waits for it."""
+        path = self.path(step)
+        if mesh.is_primary():
+            self._write(path, model, optimizer, scheduler, step, epoch, batch, config)
+        mesh.barrier()
+        return path
+
+    def _write(self, path, model, optimizer, scheduler, step, epoch, batch, config) -> None:
         os.makedirs(self.directory, exist_ok=True)
         state = {
             "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
@@ -111,7 +124,6 @@ class CheckpointManager:
             "step": int(step), "epoch": int(epoch), "batch": int(batch),
             "config": dataclasses.asdict(config),
         }
-        path = self.path(step)
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
             torch.save(state, f)
@@ -120,19 +132,20 @@ class CheckpointManager:
         os.replace(tmp, path)
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self.path(old))
-        return path
 
-    def _read(self, step: Optional[int]) -> Dict[str, Any]:
+    def _read(self, step: Optional[int], map_location="cpu") -> Dict[str, Any]:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        return torch.load(self.path(step), map_location="cpu", weights_only=True)
+        return torch.load(self.path(step), map_location=map_location, weights_only=True)
 
     def restore(self, model: nn.Module, optimizer, scheduler,
-                step: Optional[int] = None) -> Dict[str, Any]:
+                step: Optional[int] = None, map_location="cpu") -> Dict[str, Any]:
         """Load the state of ``step`` (the newest by default) into the three
-        objects in place; returns its step, epoch, batch and config."""
-        state = self._read(step)
+        objects in place, read onto ``map_location`` (each rank of a process
+        group reads it onto its own device); returns its step, epoch, batch
+        and config."""
+        state = self._read(step, map_location)
         model.load_state_dict(state["model"], strict=True)
         optimizer.load_state_dict(state["optimizer"])
         scheduler.load_state_dict(state["scheduler"])

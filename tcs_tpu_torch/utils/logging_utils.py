@@ -7,7 +7,9 @@ requested (the reference hardcodes a wandb entity and makes wandb a hard
 dependency; here it is optional). Metrics may arrive as 0-d device tensors
 and are only fetched to host at flush time (one device sync per
 ``sum_freq`` steps instead of the reference's per-frame ``.item()`` syncs).
-Images go to disk through :mod:`tcs_tpu_torch.data.png`.
+Images go to disk through :mod:`tcs_tpu_torch.data.png`. Under a process
+group (``parallel.mesh``) only rank 0 writes the JSONL file and logs to
+wandb; every rank's metrics are the global batch's already.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from tcs_tpu_torch.data import png
+from tcs_tpu_torch.parallel import mesh
 from tcs_tpu_torch.utils.visualization import (
     _ERROR_COLS,
     disparity_panel,
@@ -40,7 +43,9 @@ class MetricsLogger:
         self.total_steps = 0
         self.running: Dict[str, float] = {}
         self._pending = []  # device scalars, fetched lazily at flush
-        self.jsonl_path = jsonl_path
+        primary = mesh.is_primary()
+        use_wandb = use_wandb and primary
+        self.jsonl_path = jsonl_path if primary else None
         self._t0 = time.time()
         self._wandb = None
         if use_wandb:

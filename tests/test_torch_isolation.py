@@ -6,6 +6,7 @@ forbidden too: the GPU machine has neither.
 """
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +36,27 @@ def test_port_imports_nothing_of_the_jax_side(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN and m.split(".")[0] != "tcs_tpu_torch"]
     assert not bad, bad
+
+
+LAUNCHERS = sorted((ROOT / "scripts" / "recipes").glob("torch_*.sh"))
+
+
+def test_every_recipe_has_a_launcher_for_the_port():
+    assert [p.name for p in LAUNCHERS] == sorted(
+        f"torch_{n}.sh" for n in ("sceneflow_train", "tartanair_train", "kitti_raw_train",
+                                  "sceneflow_evaluate", "tartanair_evaluate", "submit_kitti"))
+
+
+@pytest.mark.parametrize("path", LAUNCHERS, ids=lambda p: p.name)
+def test_recipe_launchers_run_the_port_under_torch_distributed_run(path):
+    """One process per card through ``python -m torch.distributed.run``,
+    never a ``torchrun`` on the PATH, and nothing of the JAX side."""
+    body = "\n".join(line for line in path.read_text().splitlines()
+                     if not line.lstrip().startswith("#"))
+    assert "python -m torch.distributed.run" in body and "torchrun" not in body
+    assert re.search(r"-m tcs_tpu_torch\.cli\.(train|evaluate) ", body)
+    assert not re.search(r"scripts/|tcs_tpu\.|jax", body)
+    subprocess.run(["bash", "-n", str(path)], check=True)
 
 
 def test_evaluation_path_imports_without_pil_or_opencv():

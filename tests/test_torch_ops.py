@@ -54,6 +54,33 @@ def test_resize(rng, out_hw):
     _close(tsam.resize_nearest(t, out_hw), jsam.resize_nearest(j, out_hw))
 
 
+# (in, out): the 1/4 grids of the test, the training recipes and the
+# evaluators' frames, the upsamplings back to full size, and odd sizes.
+RESIZE_SIZES = [(64, 16), (96, 24), (320, 80), (720, 180), (1024, 256), (480, 120),
+                (640, 160), (375, 94), (1242, 311), (24, 96), (180, 720), (7, 3), (13, 29)]
+
+
+@pytest.mark.parametrize("sizes", RESIZE_SIZES, ids=lambda s: f"{s[0]}to{s[1]}")
+def test_resize_positions_are_tcs_tpus(sizes):
+    """The align-corners positions equal tcs_tpu's compiled ``jnp.linspace``
+    to the bit, so an all-valid footprint's weights sum to exactly 1 where
+    tcs_tpu's do: the losses' ``== 1.0`` masks of sparse ground truth read
+    that (an ulp off, cells of the quarter grid changed sides, and the
+    losses of tests/test_torch_ddp.py moved far past its bound)."""
+    n_in, n_out = sizes
+    want = [np.asarray(a) for a in jsam._linear_resize_weights(n_in, n_out)]
+    got = [a.numpy() for a in tsam._linear_resize_weights(n_in, n_out, "cpu")]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2][:, 0])
+    if n_in <= 96:  # the test's grids: the mask that the losses read
+        mask = (np.random.default_rng(n_in).uniform(size=(1, n_in, 5, 1)) < 0.7).astype(
+            np.float32)
+        t, j = _pair(mask)
+        np.testing.assert_array_equal(tsam.resize_bilinear(t, (n_out, 5)).numpy() == 1.0,
+                                      np.asarray(jsam.resize_bilinear(j, (n_out, 5))) == 1.0)
+
+
 def test_bilinear_sampler(rng):
     t, j = _pair(rng.normal(size=(2, 6, 9, 5)).astype(np.float32))
     ct, cj = _pair(rng.uniform(-2, 11, size=(2, 4, 7, 2)).astype(np.float32))

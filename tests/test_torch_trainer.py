@@ -16,9 +16,12 @@ config) over trees fabricated from a seed.
   ``test_torch_model.py``'s 5e-2 px (measured 8.9e-6 px); this is the one
   JAX program the file compiles.
 - ``cli/train.py`` maps every flag as ``scripts/train.py``'s ``build_config``
-  does, without the TPU and multi-host flags, and trains in a subprocess
-  with worker processes and validation; a SIGTERM to the subprocess's whole
-  process group, its workers with it, leaves a checkpoint and exit code 0.
+  does, without the TPU flags, and trains in a subprocess with worker
+  processes and validation; a SIGTERM to the subprocess's whole process
+  group, its workers with it, leaves a checkpoint and exit code 0. The
+  subprocesses get this file's two threads (``OMP_NUM_THREADS``): at the
+  host's eight, beside the other test processes, a step of theirs took 45 s
+  in place of 1.
 """
 
 import dataclasses
@@ -51,8 +54,9 @@ from tcs_tpu_torch.utils.checkpoint import CheckpointManager, save_weights
 from tools.convert_torch_ckpt import convert_state_dict
 
 # The test processes share the host: two intra-op threads each, so that
-# several workers do not oversubscribe its cores.
+# several workers do not oversubscribe its cores; the CLI's subprocesses too.
 torch.set_num_threads(2)
+CHILD_ENV = {**os.environ, "OMP_NUM_THREADS": "2"}
 
 ROOT = Path(__file__).resolve().parent.parent
 MCFG = ModelConfig(mixed_precision=False, corr_dtype="float32")
@@ -148,10 +152,11 @@ def _fake_step(trainer, bad_steps):
     """The trainer's step with its metrics replaced: NaN on ``bad_steps``."""
     real, count = trainer.step_fn, [0]
 
-    def step(batch):
+    def step(batch, extra=None):
         count[0] += 1
         v = float("nan") if count[0] in bad_steps else 1.0
-        return {"live_loss": torch.tensor(v), "grad_norm": torch.tensor(v)}
+        return {"live_loss": torch.tensor(v), "grad_norm": torch.tensor(v),
+                **{k: torch.tensor(float(x)) for k, x in (extra or {}).items()}}
 
     step.optimizer, step.scheduler = real.optimizer, real.scheduler
     trainer.step_fn = step
@@ -197,13 +202,6 @@ def test_sigterm_leaves_a_checkpoint_and_returns(tree, tmp_path):
     assert stop["preempted"] and 1 <= stop["step"] < 50
     assert trainer.ckpt.latest_step() == stop["step"] == _records(cfg)[-1]["step"]
     assert signal.getsignal(signal.SIGTERM) is before
-
-
-def test_trainer_refuses_more_than_one_rank(tree, tmp_path, monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(RuntimeError, match="DDP"):
-        Trainer(_cfg(tree, tmp_path), device="cpu")
 
 
 def test_full_checkpoint_converts_into_tcs_tpu(runs):
@@ -277,10 +275,14 @@ def test_cli_has_its_own_flags_and_not_the_tpu_ones():
                                            "7"]))
     assert cfg.validation_frequency == 7
     assert cli.parse_args(["--recipe", "sceneflow"]).device == "cuda"
-    for dropped in (["--frame_parallel_backward"], ["--frame_inline_backward"],
-                    ["--coordinator", "h:1"], ["--num_processes", "2"], ["--process_id", "0"]):
+    for dropped in (["--frame_parallel_backward"], ["--frame_inline_backward"]):
         with pytest.raises(SystemExit):
             cli.parse_args(["--recipe", "sceneflow", *dropped])
+    # scripts/train.py's multi-host flags: one process per card
+    # (tests/test_torch_ddp.py follows them into initialize_distributed)
+    args = cli.parse_args(["--recipe", "sceneflow", "--coordinator", "h:1",
+                           "--num_processes", "2", "--process_id", "1"])
+    assert (args.coordinator, args.num_processes, args.process_id) == ("h:1", 2, 1)
 
 
 def test_training_path_imports_without_pil_or_opencv():
@@ -301,7 +303,8 @@ def test_cli_trains_with_worker_processes_and_validation(tmp_path):
          "--name", "cli", "--num_steps", "2", "--validation_frequency", "2", "--validate",
          "--image_size", "64", "96", "--frame_length", "2", "--batch_size", "1",
          "--train_iters", "1", "--valid_iters", "1", "--num_workers", "1",
-         "--no_mixed_precision"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+         "--no_mixed_precision"], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=CHILD_ENV)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     ck = CheckpointManager(os.path.join(root, "ck", "cli"))
     assert ck.steps() == [1, 2]
@@ -340,7 +343,7 @@ def test_cli_checkpoints_when_its_process_group_is_signalled(tmp_path):
          "--num_steps", "1000", "--image_size", "64", "96", "--frame_length", "2",
          "--batch_size", "1", "--train_iters", "1", "--num_workers", "2",
          "--no_mixed_precision"], cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        stderr=subprocess.STDOUT, text=True, start_new_session=True, env=CHILD_ENV)
     try:
         deadline = time.time() + 300
         while not (os.path.exists(steps) and os.path.getsize(steps) > 0):
