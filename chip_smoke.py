@@ -59,7 +59,18 @@ Phases, in order; any failure exits non-zero:
    tree, stopped by a SIGTERM to the launcher's process group and resumed;
    (d) the evaluation CLI with ``--sharded`` under the launcher on phase 8's
    TartanAir tree against phase 8's in-process results; (e) with two cards
-   or more, (b) over NCCL across two of them.
+   or more, (b) over NCCL across two of them;
+11. trained weights and convergence: (a) ``tcs_tpu``'s trained weights
+   (``tests/fixtures/convergence_params.npz``, read by
+   ``utils.checkpoint.load_params_npz``) through the port on the card and on
+   the CPU, four two-plane clips of 2 frames at 64×96, iters 5, in the fp32
+   config (TF32 off) and the default bf16 config; (b) on the card, the
+   carried temporal state against a reset on those clips with frame 1's
+   foreground erased from the right view, in both configs; (c)
+   ``save_params_npz`` of the loaded weights against the fixture's arrays;
+   (d) ``scripts/torch_convergence_synthetic.py``'s run in this process at
+   its defaults: 300 training steps, then carried against reset on 8
+   held-out clips.
 
 The last line of standard output is the JSON device record. Run from the
 repository root: ``python chip_smoke.py``. ``python chip_smoke.py
@@ -120,6 +131,14 @@ EVAL_TREES = {
     "kitti": ("kitti_tree", dict(frames=11, height=375, width=1242), 1, 11),
 }
 EVAL_DIRECT_TOL = 1e-3  # px: evaluator against a direct drive of the same frames, same card
+
+# Phase 11: tcs_tpu's trained weights and tests/test_train.py's protocol, the
+# card against the CPU in the fp32 config with TF32 off.
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                       "convergence_params.npz")
+FIXTURE_H, FIXTURE_W, FIXTURE_CLIPS, FIXTURE_ITERS = 64, 96, 4, 5
+TRAINED_TOL = 1e-3
+FIXTURE_CONFIGS = {"fp32": dict(mixed_precision=False, corr_dtype="float32"), "bf16": {}}
 
 
 def fail(msg: str) -> None:
@@ -1789,6 +1808,155 @@ def phase_data_parallel(smi: str, train_ms: float, eval_tree: dict, train_tree: 
     return {k: counts[k] + cli_counts[k] for k in counts}
 
 
+# Phase 11, trained weights and convergence.
+
+
+def _fixture_clips():
+    from tcs_tpu_torch.data.synthetic import SyntheticStereoSequence
+
+    ds = SyntheticStereoSequence(n_samples=FIXTURE_CLIPS, frame_length=2, height=FIXTURE_H,
+                                 width=FIXTURE_W, layered_frac=1.0)
+    return [ds.load_sample(ci, np.random.default_rng(10_000 + ci))
+            for ci in range(FIXTURE_CLIPS)]
+
+
+def _trained_frames(name, clips, occluded_right_view):
+    """(a) and (b) for one config: per device, each clip's frame-0 and
+    frame-1 flows on its own carry, frame 1 on the card from the CPU's
+    frame-0 state, and on the card the occluded frame 1 carried and reset."""
+    from tcs_tpu_torch import ModelConfig
+    from tcs_tpu_torch.models import CameraParams, TCStereo, TemporalState
+    from tcs_tpu_torch.utils.checkpoint import load_params_npz
+
+    cfg = ModelConfig(**FIXTURE_CONFIGS[name])
+    models = {dev: load_params_npz(TCStereo(cfg, device=dev), FIXTURE) for dev in ("cuda", "cpu")}
+    res = {"flows": {"cuda": [], "cpu": []}, "from_cpu_state": [], "occluded": []}
+    for s in clips:
+        def run(dev, t, state, img2=None):
+            def x(a):
+                return torch.as_tensor(np.asarray(a, np.float32), device=dev)[None]
+            cam = CameraParams(K=x(s["K"]), baseline=x(s["baseline"]))
+            out = models[dev](x(s["image1"][t]), x(s["image2"][t] if img2 is None else img2),
+                              state, cam, x(s["T"][t]), iters=FIXTURE_ITERS)
+            return out.flow[0, ..., 0].cpu().numpy(), out.new_state
+
+        states = {}
+        for dev in ("cuda", "cpu"):
+            state = TemporalState.zeros(1, FIXTURE_H, FIXTURE_W, cfg, device=dev)
+            flows = []
+            for t in range(2):
+                flow, state = run(dev, t, state)
+                flows.append(flow)
+                if t == 0:
+                    states[dev] = state
+            res["flows"][dev].append(flows)
+        cpu_state = states["cpu"]
+        on_card = dataclasses.replace(
+            cpu_state, disp_q=cpu_state.disp_q.cuda(), fmap1=cpu_state.fmap1.cuda(),
+            T_prev=cpu_state.T_prev.cuda(), net_list=tuple(n.cuda() for n in cpu_state.net_list))
+        res["from_cpu_state"].append(run("cuda", 1, on_card)[0])
+        img2, (y0, y1, x0, x1) = occluded_right_view(s, 1)
+        errs = {}
+        for key, state in (("carried", states["cuda"]),
+                           ("reset", TemporalState.zeros(1, FIXTURE_H, FIXTURE_W, cfg,
+                                                         device="cuda"))):
+            flow, _ = run("cuda", 1, state, img2)
+            errs[key] = float(np.abs(flow - s["flow"][1][..., 0])[y0:y1, x0:x1].mean())
+        res["occluded"].append(errs)
+    res["model"] = models["cuda"]
+    return res
+
+
+def _load_script(name: str):
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_trained_weights(smi: str) -> dict:
+    """Phase 11; returns the launch counts of the phase."""
+    from tcs_tpu_torch.ops import _kernels
+    from tcs_tpu_torch.utils.checkpoint import save_params_npz
+
+    t_phase = time.perf_counter()
+    conv = _load_script("torch_convergence_synthetic")
+    clips = _fixture_clips()
+    _kernels.reset_launches()
+    for name in FIXTURE_CONFIGS:
+        with tf32_off() if name == "fp32" else contextlib.nullcontext():
+            res = _trained_frames(name, clips, conv.occluded_right_view)
+        for ci in range(FIXTURE_CLIPS):
+            for t in range(2):
+                d = np.abs(res["flows"]["cuda"][ci][t] - res["flows"]["cpu"][ci][t])
+                print(f"trained weights (a) [{name}] clip {ci} frame {t}, card against CPU, "
+                      f"each on its own carry: max|dflow| {d.max():.3e} mean {d.mean():.3e} px")
+                if name == "fp32" and t == 0 and not d.max() <= TRAINED_TOL:
+                    fail(f"trained weights, fp32, clip {ci} frame 0: card {d.max()} px from "
+                         "the CPU")
+            d = np.abs(res["from_cpu_state"][ci] - res["flows"]["cpu"][ci][1])
+            print(f"trained weights (a) [{name}] clip {ci} frame 1 from the CPU's frame-0 state: "
+                  f"max|dflow| {d.max():.3e} mean {d.mean():.3e} px (tol {TRAINED_TOL} in fp32)")
+            if name == "fp32" and not d.max() <= TRAINED_TOL:
+                fail(f"trained weights, fp32, clip {ci} frame 1 from one state: card {d.max()} px "
+                     "from the CPU")
+        carried = float(np.mean([e["carried"] for e in res["occluded"]]))
+        reset = float(np.mean([e["reset"] for e in res["occluded"]]))
+        print(f"trained weights (b) [{name}] on the card, occluded frame 1, iters "
+              f"{FIXTURE_ITERS}: carried {carried:.4f} px, reset {reset:.4f} px (per clip "
+              f"{res['occluded']})")
+        if not carried < reset:
+            fail(f"trained weights [{name}]: the carried state ({carried}) does not beat a "
+                 f"reset ({reset})")
+        if name == "fp32":
+            os.makedirs("runs", exist_ok=True)
+            path = os.path.join("runs", "trained_roundtrip.npz")
+            save_params_npz(res["model"], path)
+            with np.load(path) as mine, np.load(FIXTURE) as theirs:
+                same = sorted(mine.files) == sorted(theirs.files) and all(
+                    np.array_equal(mine[k].view(np.uint16), theirs[k].view(np.uint16))
+                    for k in theirs.files)
+            print(f"trained weights (c) save_params_npz of the loaded weights: "
+                  f"{len(theirs.files)} arrays, bit for bit with the fixture: {same}")
+            if not same:
+                fail("save_params_npz does not give back the fixture's arrays")
+
+    args = conv.parse_args([])
+    t0 = time.perf_counter()
+    res = conv.run(args)
+    losses = [r["loss"] for r in res["rows"]]
+    per_step = {k: v / args.steps for k, v in res["launches"].items()}
+    want = {"corr_lookup": 2 * args.iters, "corr_lookup_bwd": 2 * args.iters, "splat_sum": 1,
+            "splat_sum_bwd": 0}
+    print(f"convergence (d): {args.steps} steps at B1 {args.height}x{args.width} fl2 iters "
+          f"{args.iters}, {res['train_seconds'] / args.steps:.4f} s/step (host clock, the "
+          f"loader included), launches a step {per_step} expected {want}; first-{res['k']} "
+          f"EPE {res['first_epe']:.4f} px, last-{res['k']} EPE {res['final_epe']:.4f} px "
+          f"(target < {args.epe_target}) on {smi}")
+    for key, r in res["temporal"].items():
+        print(f"convergence (d) temporal {key}: carried {r['carried']:.4f} px, reset "
+              f"{r['reset']:.4f} px")
+    print(f"convergence (d): {time.perf_counter() - t0:.1f} s "
+          f"({res['eval_seconds']:.1f} s of it the temporal evaluation)")
+    if per_step != want:
+        fail(f"convergence launches a step {per_step} != {want}")
+    if not all(np.isfinite(losses)):
+        fail("a convergence loss is not finite")
+    if not res["final_epe"] < args.epe_target:
+        fail(f"convergence: last-{res['k']} EPE {res['final_epe']} px, target {args.epe_target}")
+    for key in ("iters1_clean", f"iters{args.iters}_occluded"):
+        r = res["temporal"][key]
+        if not r["carried"] < r["reset"]:
+            fail(f"convergence {key}: carried {r['carried']} does not beat reset {r['reset']}")
+    counts = dict(_kernels.launches)
+    print(f"trained weights and convergence: phase 11 took {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {counts}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1806,6 +1974,7 @@ def main() -> None:
     paths["evaluation"], eval_tree = phase_evaluators(smi)
     paths["training_from_files"], train_tree = phase_training_from_files(smi, train_ms)
     paths["data_parallel"] = phase_data_parallel(smi, train_ms, eval_tree, train_tree)
+    paths["trained_weights"] = phase_trained_weights(smi)
     # `launches` sums the driven paths, each of which set the counts to 0
     # before it and read them after. The times and the bound are at the
     # shapes of the path that launches the kernel most, in the type it runs

@@ -184,3 +184,49 @@ def state_dict_from_jax(params, n_gru_layers: int = 3) -> Dict[str, torch.Tensor
     if unused:
         raise KeyError(f"parameters with no place in the port: {unused[:5]}")
     return sd
+
+
+# The Flax modules under a ``Norm`` that hold its parameters, by ``norm_fn``
+# (``tcs_tpu/models/layers.py:52-118``).
+_NORM_SCOPES = {"group": ("GroupNorm_0", "GroupNorm_0"), "batch": ("BatchNorm_0",)}
+_DECONVS = frozenset(f"{m}.{blk}.conv1.conv" for m in ("disp_completor", "disp_grad_refine")
+                     for blk in ("conv_16_8", "conv_8_4"))
+
+
+def _set(tree, path: Path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def params_from_state_dict(sd, context_norm: str = "none"):
+    """The port's (reference-named) state dict → ``{"params": tree}`` of
+    float32 numpy arrays in ``tcs_tpu``'s layout, the inverse of
+    :func:`state_dict_from_jax` over the same module and norm maps (which,
+    unlike ``tools/convert_torch_ckpt.py``, keeps the group and batch context
+    norms' parameters). ``context_norm`` names the Flax scopes of the context
+    encoder's norm parameters. Raises if an entry of ``sd`` has no place in
+    the tree."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in sd.items()}
+    tree: dict = {}
+    used = set()
+    for tprefix, jpath in module_map():
+        if tprefix + ".weight" not in sd:
+            continue
+        layer = "ConvTranspose_0" if tprefix in _DECONVS else "Conv_0"
+        _set(tree, jpath + (layer, "kernel"), sd[tprefix + ".weight"].transpose(2, 3, 1, 0))
+        used.add(tprefix + ".weight")
+        if tprefix + ".bias" in sd:
+            _set(tree, jpath + (layer, "bias"), sd[tprefix + ".bias"])
+            used.add(tprefix + ".bias")
+    for tprefixes, jpath in norm_map():
+        if tprefixes[0] + ".weight" not in sd:
+            continue
+        scope = jpath + _NORM_SCOPES[context_norm]
+        _set(tree, scope + ("scale",), sd[tprefixes[0] + ".weight"])
+        _set(tree, scope + ("bias",), sd[tprefixes[0] + ".bias"])
+        used.update(t + s for t in tprefixes for s in (".weight", ".bias"))
+    unused = sorted(set(sd) - used)
+    if unused:
+        raise KeyError(f"state dict entries with no place in tcs_tpu's tree: {unused[:5]}")
+    return {"params": tree}

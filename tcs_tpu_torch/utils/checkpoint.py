@@ -1,5 +1,6 @@
-"""Checkpoints: weights in the reference's ``.pth`` format, and the
-trainer's full-state checkpoints, whose weights are in that format too.
+"""Checkpoints: weights in the reference's ``.pth`` format and in
+``tcs_tpu``'s ``.npz`` format, and the trainer's full-state checkpoints,
+whose weights are in the ``.pth`` format too.
 
 A reference checkpoint (``train_stereo.py:260-269``,
 ``tools/convert_torch_ckpt.py:3-8``) is a dict with ``'model'``, or a bare
@@ -7,6 +8,14 @@ state dict, with or without the ``module.`` prefix of DDP. The port's
 parameter names are the reference's, so such a file loads into ``TCStereo``
 as it is, and a file written by :func:`save_weights` converts into
 ``tcs_tpu``'s parameters through ``tools/convert_torch_ckpt.py``.
+
+``tcs_tpu``'s ``.npz`` (``tcs_tpu/utils/checkpoint.py:97-117``,
+``save_params_npz`` / ``load_params_npz``) holds one array per parameter of
+its ``{"params": tree}``, keyed by ``jax.tree_util.keystr`` of the leaf's
+path (``"['params']['cnet']['conv1']['Conv_0']['bias']"``), fp16 by default:
+``tests/fixtures/convergence_params.npz`` is such a file. The port reads and
+writes it with numpy alone, through ``convert.state_dict_from_jax`` and
+``convert.params_from_state_dict``.
 
 Loading is strict: missing or unexpected entries raise, listed. The one
 exception is BatchNorm's running statistics, which the port's batch norm has
@@ -34,9 +43,11 @@ import os
 import re
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from tcs_tpu_torch import convert
 from tcs_tpu_torch.parallel import mesh
 
 logger = logging.getLogger(__name__)
@@ -79,6 +90,62 @@ def save_weights(model: nn.Module, path) -> None:
     """``{'model': state_dict}`` with CPU tensors, the reference's format."""
     torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
                path)
+
+
+_KEYSTR_PART = re.compile(r"\['([^'\]]+)'\]")
+
+
+def _keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys."""
+    return "".join(f"['{k}']" for k in path)
+
+
+def _parse_keystr(key: str):
+    path = tuple(_KEYSTR_PART.findall(key))
+    if not path or _keystr(path) != key:
+        raise KeyError(f"not a key path of dict keys: {key!r}")
+    return path
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def load_params_npz(model: nn.Module, path) -> nn.Module:
+    """Load ``tcs_tpu``'s ``.npz`` parameter file into ``model`` in place
+    (each array as float32); returns ``model``. Raises ``KeyError`` naming
+    the file's keys if it holds a parameter the model lacks or lacks one the
+    model has."""
+    own = convert.params_from_state_dict(model.state_dict(), model.cfg.context_norm)
+    want = {_keystr(p) for p, _ in _flatten(own)}
+    tree: dict = {}
+    with np.load(path) as data:
+        missing, unexpected = sorted(want - set(data.files)), sorted(set(data.files) - want)
+        if missing or unexpected:
+            raise KeyError(f"{path} does not fit the model: missing {missing},"
+                           f" unexpected {unexpected}")
+        for key in data.files:
+            node = tree
+            *scopes, leaf = _parse_keystr(key)
+            for k in scopes:
+                node = node.setdefault(k, {})
+            node[leaf] = data[key].astype(np.float32)
+    model.load_state_dict(convert.state_dict_from_jax(tree, model.cfg.n_gru_layers),
+                          strict=True)
+    logger.info("loaded %d arrays from %s", len(want), path)
+    return model
+
+
+def save_params_npz(model: nn.Module, path, dtype: str = "float16") -> None:
+    """``model``'s weights as ``tcs_tpu``'s ``.npz`` (``save_params_npz``
+    there): ``tcs_tpu``'s ``load_params_npz`` reads the file into a tree of
+    the same architecture."""
+    tree = convert.params_from_state_dict(model.state_dict(), model.cfg.context_norm)
+    np.savez_compressed(path, **{_keystr(p): v.astype(dtype) for p, v in _flatten(tree)})
 
 
 class CheckpointManager:
