@@ -36,7 +36,9 @@ Phases, in order; any failure exits non-zero:
    synthetic batch from a seed: 1 warm-up step and 3 timed steps, with the
    launch counts read around them;
 8. the evaluators: ``validate_tartanair``, ``validate_temporal_things`` and
-   ``submit_kitti`` (submission PNG, then pseudo-colour frames) over the
+   ``submit_kitti`` (submission PNG, then the pseudo-colour MJPG ``.avi``,
+   parsed and decoded with the port's reader and held frame by frame to
+   the encoding of its disparity's colour map) over the
    default config at each dataset's frame size (480×640, 540×960,
    375×1242), iters 5, on trees fabricated from a seed; ms/frame over the
    call and over the frames after the first, the first frame's time, and the
@@ -70,7 +72,17 @@ Phases, in order; any failure exits non-zero:
    ``save_params_npz`` of the loaded weights against the fixture's arrays;
    (d) ``scripts/torch_convergence_synthetic.py``'s run in this process at
    its defaults: 300 training steps, then carried against reset on 8
-   held-out clips.
+   held-out clips;
+12. JPEG and traces: (a) the committed JPEG fixtures (``tests/fixtures/
+   jpeg/``) decoded by the port to ``tcs_tpu``'s digests, and the committed
+   image encoded by the port to PIL's bytes; (b) a
+   FallingThings tree at 960x540 written with the port's encoder, its
+   decode and encode times, and ``fetch_dataset('falling_things')`` through
+   the loader; (c) ``utils.profiling.trace`` with module ranges around 3
+   frames of phase 4's main path and one step of phase 7's training step,
+   ``trace_summary.summarize_trace`` of each (device time and events, the
+   tables by module, family and kernel, the share of no module), each hand
+   kernel's events in the trace held to its wrapper's launch count.
 
 The last line of standard output is the JSON device record. Run from the
 repository root: ``python chip_smoke.py``. ``python chip_smoke.py
@@ -1090,9 +1102,7 @@ def phase_evaluators(smi: str) -> dict:
             fail(f"evaluator {name}: a disparity is not finite or negative")
     print(f"evaluator kitti: kitti-fps {results['kitti']['kitti-fps']} (tcs_tpu's rule: only "
           f"frames after the 7th of scenes after the 51st are timed, so one scene gives 0.0)")
-    video = sorted(os.listdir(os.path.join(out_dir, "video", "000000")))
-    if video != [f"{i:06d}.png" for i in range(11)]:
-        fail(f"submit_kitti(submission=False) wrote {video}")
+    check_kitti_video(os.path.join(out_dir, "video"), recorded["kitti video"], smi)
 
     # Each evaluator against a direct drive of the same frames, same card.
     direct = {}
@@ -1149,6 +1159,62 @@ def phase_evaluators(smi: str) -> dict:
                  ev.metric_bounds(direct["TartanAir"], EVAL_DIRECT_TOL, "TartanAir"))
     # phase 10 runs the sharded CLI on the same tree and weights
     return total, dict(tmp_dir=tmp_dir, root=root, pth=pth, results=results["TartanAir"])
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
+
+
+# The lowest PSNR a frame of phase 8's video may have against the pseudo-colour
+# map it encodes. The port's q95 4:2:0 frames read 31.38 dB at the lowest on
+# NVIDIA H100 80GB HBM3 at 700 W (the random weights' rough disparity has
+# sharp colour edges that 4:2:0 blurs). The floor catches a gross fault of the
+# encoder; a subtle one (a coarser quantiser, a colour weight off by 0.1)
+# moves the PSNR by a few dB or less, and phase 12 (a), which holds the
+# encoder's bytes to PIL's, catches it.
+VIDEO_PSNR_FLOOR = 30.0
+
+
+def check_kitti_video(video_dir: str, disps: list, smi: str) -> None:
+    """``submit_kitti(submission=False)``'s ``.avi``, parsed and decoded with
+    the port's own reader and decoder: MJPG at 2 fps, the scene's size and
+    frame count, each frame the port's encoding (quality 95) of the
+    pseudo-colour map of the disparity ``TemporalEvaluator`` gave for it, bit
+    for bit, and each frame at least ``VIDEO_PSNR_FLOOR`` dB from that map.
+    The bit-for-bit check ties the frames to their maps; the floor holds the
+    encoder's error against the map (phase 12 (a) holds its bytes to PIL's)."""
+    from tcs_tpu_torch.data.jpeg import encode_jpeg, read_jpeg
+    from tcs_tpu_torch.utils.video import read_avi
+    from tcs_tpu_torch.utils.visualization import pseudo_color_map
+
+    listing = sorted(os.listdir(video_dir))
+    if listing != ["000000.avi"]:
+        fail(f"submit_kitti(submission=False) wrote {listing}, not one .avi")
+    path = os.path.join(video_dir, listing[0])
+    avi = read_avi(path)
+    kh, kw = EVAL_TREES["kitti"][1]["height"], EVAL_TREES["kitti"][1]["width"]
+    head = (avi.fourcc, avi.fps, avi.width, avi.height, len(avi.frames))
+    print(f"submit_kitti video {listing[0]}: {os.path.getsize(path)} bytes, (fourcc, fps, "
+          f"width, height, frames) {head}")
+    if head != ("MJPG", 2.0, kw, kh, len(disps)):
+        fail(f"submit_kitti's video {head} against ('MJPG', 2.0, {kw}, {kh}, {len(disps)})")
+    t_dec, worst = [], float("inf")
+    for k, (data, disp) in enumerate(zip(avi.frames, disps)):
+        t0 = time.perf_counter()
+        frame = read_jpeg(data)
+        t_dec.append(1e3 * (time.perf_counter() - t0))
+        want = pseudo_color_map(disp, vmin=0, vmax=96, kitti_style=True)
+        if not np.array_equal(frame, read_jpeg(encode_jpeg(want, 95))):
+            fail(f"submit_kitti's video frame {k} is not the encoding of its disparity's map")
+        worst = min(worst, psnr(frame, want))
+    print(f"submit_kitti video: every frame the port's quality-95 encoding of its "
+          f"disparity's pseudo-colour map, bit for bit; lowest PSNR against the map "
+          f"{worst:.2f} dB (floor {VIDEO_PSNR_FLOOR}); read_jpeg {kw}x{kh} median "
+          f"{float(np.median(t_dec)):.3f} ms a frame on the host of {smi}")
+    if worst < VIDEO_PSNR_FLOOR:
+        fail(f"submit_kitti's video: a frame {worst:.2f} dB from its map, below the "
+             f"{VIDEO_PSNR_FLOOR} dB floor")
 
 
 # Phase 9, training from files: the trees (frames per sequence at the
@@ -1957,6 +2023,154 @@ def phase_trained_weights(smi: str) -> dict:
     return counts
 
 
+# Phase 12: the committed JPEG fixtures, a FallingThings tree at its own
+# frame size (scenes, pairs each), and the traces of phase 4's main path
+# (frames after one untraced) and of phase 7's training step (one step after
+# one untraced), with the kernels each hand kernel's wrapper launches once.
+JPEG_FIXTURES = os.path.join("tests", "fixtures", "jpeg")
+FT_SCENES = ("single/002_master_chef_can_16k/kitchen_0", "mixed/kitchen_1")
+FT_FRAMES, FT_W, FT_H = 2, 960, 540
+TRACE_FRAMES, TRACE_STEPS = 3, 1
+ONE_KERNEL_PER_LAUNCH = {"corr_lookup": "corr_lookup_kernel",
+                         "corr_lookup_bwd": "corr_lookup_bwd_kernel",
+                         "splat_sum": "splat_sum_gather_kernel"}
+
+
+def traced(tag: str, logdir: str, model, run, units: int, unit: str) -> tuple:
+    """``run()`` under ``profiling.trace`` with the model's module ranges,
+    the launch counts read around it; the trace's summary, printed, and the
+    counts. Each hand kernel's events in ``by_op`` are held to its count."""
+    from tcs_tpu_torch.ops import _kernels
+    from tcs_tpu_torch.utils.profiling import trace
+    from tcs_tpu_torch.utils.trace_summary import print_summary, summarize_trace
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace(logdir, model):
+        _kernels.reset_launches()
+        run()
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+    t1 = time.perf_counter()
+    summary = summarize_trace(logdir)
+    t2 = time.perf_counter()
+    print(f"trace [{tag}]: traced and written in {t1 - t0:.2f} s, summarised in "
+          f"{t2 - t1:.2f} s; device {summary.total_ms / units:.3f} ms and "
+          f"{summary.events / units:.1f} device events a {unit}; no module "
+          f"{100 * summary.unattributed_ms / max(summary.total_ms, 1e-9):.2f} % of the device "
+          f"time; top-level ranges {summary.jit_ms}")
+    print_summary(summary, units, top=8)
+    for name, stem in ONE_KERNEL_PER_LAUNCH.items():
+        events = sum(n for op, n in summary.launches.items() if stem in op)
+        print(f"trace [{tag}]: {stem} events {events}, {name} launches {counts[name]}")
+        if events != counts[name]:
+            fail(f"trace [{tag}]: {events} {stem} events against {counts[name]} launches")
+    return summary, counts
+
+
+def phase_jpeg_and_trace(smi: str) -> dict:
+    """Phase 12; returns the launch counts of the two traced paths, summed."""
+    import glob
+    import hashlib
+    import tempfile
+
+    from tcs_tpu_torch import ModelConfig
+    from tcs_tpu_torch.config import sceneflow_recipe
+    from tcs_tpu_torch.data import datasets, fabricate
+    from tcs_tpu_torch.data.frame_utils import read_image
+    from tcs_tpu_torch.data.jpeg import encode_jpeg, read_jpeg
+    from tcs_tpu_torch.data.loader import SequenceLoader
+    from tcs_tpu_torch.evaluate import TemporalEvaluator
+    from tcs_tpu_torch.models import TCStereo
+    from tcs_tpu_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    for name, want in sorted(digests["decode"].items()):
+        img = read_jpeg(os.path.join(JPEG_FIXTURES, name))
+        got = {"shape": list(img.shape), "sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+        print(f"jpeg fixture {name}: {got['shape']} sha256 {got['sha256'][:16]}..., "
+              f"tcs_tpu's decode's: {got == want}")
+        if got != want:
+            fail(f"read_jpeg of the fixture {name} gives {got}, tcs_tpu's decode {want}")
+    for name, want in sorted(digests["encode"].items()):
+        img = read_image(os.path.join(JPEG_FIXTURES, name))
+        got = hashlib.sha256(encode_jpeg(img, want["quality"])).hexdigest()
+        print(f"jpeg fixture {name}: encode_jpeg at quality {want['quality']} sha256 "
+              f"{got[:16]}..., PIL's bytes: {got == want['sha256']}")
+        if got != want["sha256"]:
+            fail(f"encode_jpeg of the fixture {name} gives sha256 {got}, PIL's bytes "
+                 f"{want['sha256']}")
+
+    os.makedirs("runs", exist_ok=True)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="falling_things_", dir="runs")
+    root = tmp_dir.name
+    t0 = time.perf_counter()
+    fabricate.falling_things_tree(root, scenes=FT_SCENES, frames=FT_FRAMES, height=FT_H,
+                                  width=FT_W)
+    files = sorted(glob.glob(os.path.join(root, "FallingThings", "**", "*.jpg"), recursive=True))
+    print(f"FallingThings tree ({len(FT_SCENES)} scenes x {FT_FRAMES} pairs, {FT_W}x{FT_H}, "
+          f"{len(files)} JPEGs of quality 95) written in {time.perf_counter() - t0:.2f} s")
+    dec, enc = [], []
+    for path in files:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = read_jpeg(path)
+            dec.append(1e3 * (time.perf_counter() - t0))
+        if img.shape != (FT_H, FT_W, 3):
+            fail(f"{path} decodes to {img.shape}")
+        t0 = time.perf_counter()
+        encode_jpeg(img, 95)
+        enc.append(1e3 * (time.perf_counter() - t0))
+    print(f"read_jpeg {FT_W}x{FT_H} 4:2:0 q95: median {float(np.median(dec)):.3f} ms a frame "
+          f"(min {min(dec):.3f}); encode_jpeg median {float(np.median(enc)):.3f} ms a frame; "
+          f"on the host of {smi}")
+    cfg = dataclasses.replace(sceneflow_recipe(), train_dataset="falling_things",
+                              temporal=False, frame_length=1, data_root=root)
+    ds = datasets.fetch_dataset(cfg)
+    t0 = time.perf_counter()
+    with SequenceLoader(ds, cfg.batch_size, seed=cfg.seed, num_workers=2) as loader:
+        batch = next(iter(loader))
+    shapes = {k: v.shape for k, v in batch.items()}
+    print(f"fetch_dataset('falling_things'): {len(ds)} samples; the loader's first batch in "
+          f"{time.perf_counter() - t0:.2f} s: {shapes}")
+    h, w = cfg.image_size
+    if (len(ds) != 5 * len(files) // 2 or batch["image1"].shape != (cfg.batch_size, 1, h, w, 3)
+            or not all(np.isfinite(v).all() for v in batch.values())):
+        fail(f"FallingThings through fetch_dataset and the loader: {len(ds)} samples, {shapes}")
+    tmp_dir.cleanup()
+
+    total = {}
+    cfg_main = ModelConfig()
+    model = TCStereo(cfg_main, seed=0)
+    ev = TemporalEvaluator(model, cfg_main, iters=MAIN_ITERS)
+    rng = np.random.default_rng(2)
+    left = rng.uniform(0, 255, (TRACE_FRAMES + 1, MAIN_H, MAIN_W + 64, 3)).astype(np.float32)
+    K = np.array([[721.5, 0, MAIN_W / 2], [0, 721.5, MAIN_H / 2], [0, 0, 1]], np.float32)
+
+    def frame(k):
+        ev(left[k, :, 32:32 + MAIN_W], left[k, :, 40 + k:40 + k + MAIN_W], K, 0.54, _pose(k))
+
+    frame(0)
+    _, counts = traced("main path", os.path.join("runs", "trace_main_path"), model,
+                       lambda: [frame(k) for k in range(1, TRACE_FRAMES + 1)], TRACE_FRAMES,
+                       "frame")
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+
+    tcfg = sceneflow_recipe()
+    tmodel = TCStereo(tcfg.model, seed=0)
+    step = make_train_step(tmodel, tcfg)
+    batch = _synthetic_batch(TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_FRAMES, tcfg.seed, "cuda")
+    step(batch)
+    _, counts = traced("training step", os.path.join("runs", "trace_train_step"), tmodel,
+                       lambda: [step(batch) for _ in range(TRACE_STEPS)], TRACE_STEPS, "step")
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    print(f"jpeg and trace: phase 12 took {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {total}")
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1975,6 +2189,7 @@ def main() -> None:
     paths["training_from_files"], train_tree = phase_training_from_files(smi, train_ms)
     paths["data_parallel"] = phase_data_parallel(smi, train_ms, eval_tree, train_tree)
     paths["trained_weights"] = phase_trained_weights(smi)
+    paths["jpeg_and_trace"] = phase_jpeg_and_trace(smi)
     # `launches` sums the driven paths, each of which set the counts to 0
     # before it and read them after. The times and the bound are at the
     # shapes of the path that launches the kernel most, in the type it runs

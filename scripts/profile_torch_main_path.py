@@ -6,19 +6,26 @@ Runs ``TCStereo`` (default config: bf16 conv stacks, bf16 pyramid) at
 reports:
 
 - model ms/frame from CUDA events (no host-side image conversion);
-- under ``torch.profiler``: device kernel time per frame, the device's busy
-  share of the frame (kernel time / wall time), kernel launches per frame,
-  and the kernels with the most device time, grouped by family.
+- under ``tcs_tpu_torch.utils.profiling.trace`` (``torch.profiler``, no
+  module ranges) and ``trace_summary.summarize_trace``: device time per
+  frame (kernels, copies and fills), the device's busy share of the frame
+  (device time / wall time), device events per frame, and the device time by
+  family and by kernel;
+- from a second traced pass with a range a module call (``trace(logdir,
+  model)``, whose ranges cost host time, so neither its wall time nor its
+  busy share is read): the device time by module (the innermost module
+  around each launch; launches outside any module are their own row).
 
-Writes the Chrome trace and the full table under ``runs/``.
+Writes both Chrome traces (``runs/torch_main_path_trace/{plain,modules}/``)
+and the full tables under ``runs/``.
 Usage: ``python scripts/profile_torch_main_path.py``.
 """
 
 from __future__ import annotations
 
-import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -29,22 +36,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tcs_tpu_torch import ModelConfig  # noqa: E402
 from tcs_tpu_torch.models import CameraParams, TCStereo, TemporalState  # noqa: E402
+from tcs_tpu_torch.utils.profiling import trace  # noqa: E402
+from tcs_tpu_torch.utils.trace_summary import print_summary, summarize_trace  # noqa: E402
 
 H, W, ITERS = 384, 1280, 5
 WARM, TIMED, PROFILED = 3, 10, 4
-FAMILIES = (("corr_lookup", "corr_lookup"), ("splat_sum", "splat_sum"),
-            ("conv", "conv"), ("cudnn", "conv"), ("xmma", "conv"), ("sm90", "gemm/conv"),
-            ("gemm", "gemm/conv"), ("cutlass", "gemm/conv"), ("reduce", "reduce"),
-            ("elementwise", "elementwise"), ("index", "index/gather"),
-            ("gather", "index/gather"), ("cat", "copy/cat"), ("copy", "copy/cat"))
-
-
-def family(name: str) -> str:
-    low = name.lower()
-    for key, fam in FAMILIES:
-        if key in low:
-            return fam
-    return "other"
+LOGDIR = "runs/torch_main_path_trace"
 
 
 def main() -> None:
@@ -56,7 +53,7 @@ def main() -> None:
     cfg = ModelConfig()
     model = TCStereo(cfg, seed=0)
     g = torch.Generator().manual_seed(0)
-    n = WARM + TIMED + PROFILED
+    n = WARM + TIMED + 2 * PROFILED
     frames = (torch.rand(n, 2, 1, H, W, 3, generator=g) * 255).cuda()
     K = torch.tensor([[[721.5, 0, W / 2], [0, 721.5, H / 2], [0, 0, 1]]], device="cuda")
     cam = CameraParams(K=K, baseline=torch.full((1,), 0.54, device="cuda"))
@@ -82,44 +79,42 @@ def main() -> None:
     torch.cuda.synchronize()
     model_ms = start.elapsed_time(stop) / TIMED
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    shutil.rmtree(LOGDIR, ignore_errors=True)
+    plain, ranged = os.path.join(LOGDIR, "plain"), os.path.join(LOGDIR, "modules")
+    first = WARM + TIMED
+    with trace(plain):
         t0 = time.perf_counter()
-        for k in range(WARM + TIMED, n):
+        for k in range(first, first + PROFILED):
             run(k)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
-
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.time_range.elapsed_us() for e in kernels) / PROFILED
-    by_name = collections.Counter()
-    by_family = collections.Counter()
-    count_family = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us() / PROFILED
-        by_family[family(e.name)] += e.time_range.elapsed_us() / PROFILED
-        count_family[family(e.name)] += 1 / PROFILED
-    os.makedirs("runs", exist_ok=True)
-    prof.export_chrome_trace("runs/torch_main_path_trace.json.gz")
+    with trace(ranged, model):
+        for k in range(first + PROFILED, n):
+            run(k)
+        torch.cuda.synchronize()
+    s, m = summarize_trace(plain), summarize_trace(ranged)
+    dev_ms = s.total_ms / PROFILED
     with open("runs/torch_main_path_kernels.txt", "w") as f:
-        for name, us in by_name.most_common():
-            f.write(f"{us:10.1f} us/frame  {name}\n")
+        print("without module ranges:", file=f)
+        print_summary(s, PROFILED, top=10_000, file=f)
+        print("\nwith a range a module call:", file=f)
+        print_summary(m, PROFILED, top=10_000, file=f)
 
     print(f"card: {smi}")
     print(f"model ms/frame (CUDA events, device-resident inputs): {model_ms:.3f}")
-    print(f"profiled wall ms/frame: {wall_ms:.3f}; device kernel ms/frame: "
-          f"{dev_us / 1e3:.3f}; device busy share {dev_us / 1e3 / wall_ms:.3f}; "
-          f"kernel launches/frame {len(kernels) / PROFILED:.0f}")
-    for fam, us in by_family.most_common():
-        print(f"  {fam:14s} {us / 1e3:8.3f} ms/frame  {count_family[fam]:7.1f} launches/frame")
-    for name, us in by_name.most_common(12):
-        print(f"  {us / 1e3:8.3f} ms  {name[:110]}")
+    print(f"profiled wall ms/frame: {wall_ms:.3f}; device ms/frame: {dev_ms:.3f}; device "
+          f"busy share {dev_ms / wall_ms:.3f}; device events/frame {s.events / PROFILED:.0f}")
+    for fam, ms in s.by_category.most_common():
+        print(f"  {fam:14s} {ms / PROFILED:8.3f} ms/frame  "
+              f"{s.category_launches[fam] / PROFILED:7.1f} launches/frame")
+    print(f"by module, from the pass with a range a module call "
+          f"({m.total_ms / PROFILED:.3f} device ms/frame there):")
+    print_summary(m, PROFILED, top=12)
     print(json.dumps({"model_ms_per_frame": model_ms, "wall_ms_per_frame": wall_ms,
-                      "device_ms_per_frame": dev_us / 1e3,
-                      "launches_per_frame": len(kernels) / PROFILED,
-                      "families_ms": {k: v / 1e3 for k, v in by_family.items()},
+                      "device_ms_per_frame": dev_ms,
+                      "launches_per_frame": s.events / PROFILED,
+                      "families_ms": {k: v / PROFILED for k, v in s.by_category.items()},
+                      "unattributed_share": m.unattributed_ms / max(m.total_ms, 1e-9),
                       "card": smi}))
 
 

@@ -10,12 +10,20 @@ iterations) on a synthetic batch made from a seed, and reports:
   clip + AdamW, through the step's ``mark`` seams (each seam synchronises the
   device, so the split costs some overlap and its sum is an upper bound of
   the unsplit step);
-- under ``torch.profiler``: device kernel time per step, the device's busy
-  share of the step (kernel time / wall time), kernel launches per step, and
-  the kernels with the most device time, grouped by family;
+- under ``tcs_tpu_torch.utils.profiling.trace`` (``torch.profiler``, no
+  module ranges) and ``trace_summary.summarize_trace``: device time per
+  step (kernels, copies and fills), the device's busy share of the step
+  (device time / wall time), device events per step, and the device time by
+  family and by kernel;
+- from a second traced pass with a range a module call (``trace(logdir,
+  model)``, whose ranges cost host time, so neither its wall time nor its
+  busy share is read): the device time by module (a backward kernel goes to
+  the module of its forward op, through the autograd node's sequence
+  number);
 - peak device memory of a step.
 
-Writes the Chrome trace and the full table under ``runs/``.
+Writes both Chrome traces (``runs/torch_train_step_trace/{plain,modules}/``)
+and the full tables under ``runs/``.
 Usage: ``python scripts/profile_torch_train_step.py``.
 """
 
@@ -24,6 +32,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -36,25 +45,11 @@ from tcs_tpu_torch.config import sceneflow_recipe  # noqa: E402
 from tcs_tpu_torch.data.synthetic import make_clips  # noqa: E402
 from tcs_tpu_torch.models import TCStereo  # noqa: E402
 from tcs_tpu_torch.train import SequenceBatch, make_train_step  # noqa: E402
+from tcs_tpu_torch.utils.profiling import trace  # noqa: E402
+from tcs_tpu_torch.utils.trace_summary import print_summary, summarize_trace  # noqa: E402
 
 WARM, TIMED, SPLIT, PROFILED = 2, 5, 3, 2
-FAMILIES = (("corr_lookup_bwd", "corr_lookup_bwd"), ("corr_lookup", "corr_lookup"),
-            ("splat_sum_bwd", "splat_sum_bwd"), ("splat_sum", "splat_sum"),
-            ("dgrad", "conv backward"), ("wgrad", "conv backward"),
-            ("bwd", "conv backward"), ("backward", "backward elementwise/other"),
-            ("conv", "conv"), ("cudnn", "conv"), ("xmma", "conv"), ("sm90", "gemm/conv"),
-            ("gemm", "gemm/conv"), ("cutlass", "gemm/conv"), ("multi_tensor", "optimizer"),
-            ("reduce", "reduce"), ("elementwise", "elementwise"),
-            ("index", "index/gather/scatter"), ("gather", "index/gather/scatter"),
-            ("scatter", "index/gather/scatter"), ("cat", "copy/cat"), ("copy", "copy/cat"))
-
-
-def family(name: str) -> str:
-    low = name.lower()
-    for key, fam in FAMILIES:
-        if key in low:
-            return fam
-    return "other"
+LOGDIR = "runs/torch_train_step_trace"
 
 
 class Seams:
@@ -108,30 +103,25 @@ def main() -> None:
         step(batch, seams)
     parts = [seams.seconds[k] * 1e3 / SPLIT for k in ("forward", "backward", "update")]
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    shutil.rmtree(LOGDIR, ignore_errors=True)
+    plain, ranged = os.path.join(LOGDIR, "plain"), os.path.join(LOGDIR, "modules")
+    with trace(plain):
         t0 = time.perf_counter()
         for _ in range(PROFILED):
             step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
-
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.time_range.elapsed_us() for e in kernels) / PROFILED
-    by_name = collections.Counter()
-    by_family = collections.Counter()
-    count_family = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us() / PROFILED
-        by_family[family(e.name)] += e.time_range.elapsed_us() / PROFILED
-        count_family[family(e.name)] += 1 / PROFILED
-    os.makedirs("runs", exist_ok=True)
-    prof.export_chrome_trace("runs/torch_train_step_trace.json.gz")
+    with trace(ranged, model):
+        for _ in range(PROFILED):
+            step(batch)
+        torch.cuda.synchronize()
+    s, m = summarize_trace(plain), summarize_trace(ranged)
+    dev_ms = s.total_ms / PROFILED
     with open("runs/torch_train_step_kernels.txt", "w") as f:
-        for name, us in by_name.most_common():
-            f.write(f"{us:10.1f} us/step  {name}\n")
+        print("without module ranges:", file=f)
+        print_summary(s, PROFILED, top=10_000, file=f)
+        print("\nwith a range a module call:", file=f)
+        print_summary(m, PROFILED, top=10_000, file=f)
 
     frames = cfg.batch_size * cfg.frame_length
     print(f"card: {smi}")
@@ -140,21 +130,25 @@ def main() -> None:
           f"{frames * 1000 / step_ms:.2f} frames/s; peak device memory {peak_gib:.3f} GiB")
     print(f"split step (host clock, synchronised parts, mean of {SPLIT}): forward+losses "
           f"{parts[0]:.2f} ms, backward {parts[1]:.2f} ms, norm+clip+AdamW {parts[2]:.2f} ms")
-    print(f"profiled wall ms/step: {wall_ms:.2f}; device kernel ms/step: "
-          f"{dev_us / 1e3:.2f}; device busy share {dev_us / 1e3 / wall_ms:.3f}; "
-          f"kernel launches/step {len(kernels) / PROFILED:.0f}")
-    for fam, us in by_family.most_common():
-        print(f"  {fam:28s} {us / 1e3:9.3f} ms/step  {count_family[fam]:8.1f} launches/step")
-    for name, us in by_name.most_common(15):
-        print(f"  {us / 1e3:9.3f} ms  {name[:110]}")
+    print(f"profiled wall ms/step: {wall_ms:.2f}; device ms/step: {dev_ms:.2f}; device "
+          f"busy share {dev_ms / wall_ms:.3f}; device events/step {s.events / PROFILED:.0f}")
+    for fam, ms in s.by_category.most_common():
+        print(f"  {fam:28s} {ms / PROFILED:9.3f} ms/step  "
+              f"{s.category_launches[fam] / PROFILED:8.1f} launches/step")
+    print(f"by module, from the pass with a range a module call "
+          f"({m.total_ms / PROFILED:.2f} device ms/step there):")
+    print_summary(m, PROFILED, top=15)
     print(json.dumps({"step_ms": step_ms, "frames_per_s": frames * 1000 / step_ms,
                       "peak_gib": peak_gib, "split_ms": {"forward": parts[0],
                                                          "backward": parts[1],
                                                          "update": parts[2]},
-                      "wall_ms_per_step": wall_ms, "device_ms_per_step": dev_us / 1e3,
-                      "launches_per_step": len(kernels) / PROFILED,
-                      "families_ms": {k: v / 1e3 for k, v in by_family.items()},
-                      "families_launches": dict(count_family), "card": smi}))
+                      "wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
+                      "launches_per_step": s.events / PROFILED,
+                      "families_ms": {k: v / PROFILED for k, v in s.by_category.items()},
+                      "families_launches": {k: v / PROFILED
+                                            for k, v in s.category_launches.items()},
+                      "unattributed_share": m.unattributed_ms / max(m.total_ms, 1e-9),
+                      "card": smi}))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
-"""Build, load and call the port's host core (``tcs_tpu_torch/csrc/host_io.c``).
+"""Build, load and call the port's host core (``tcs_tpu_torch/csrc/host_io.c``
+and ``csrc/jpeg.c``).
 
 The port's counterpart of ``tcs_tpu/data/native_io.py``. At first use the C
-source is compiled with the host compiler (``cc``, the one ``nvcc`` drives)
-into ``tcs_tpu_torch/_build/libtcs_host_<hash>.so``, named by a hash of the
-source and the flags, so a changed source builds anew and concurrent builds
-by several processes cannot mix. It is loaded with ``ctypes.CDLL``, which
+sources are compiled with the host compiler (``cc``, the one ``nvcc`` drives)
+into one ``tcs_tpu_torch/_build/libtcs_host_<hash>.so``, named by a hash of
+every source and the flags, so a changed source builds anew and concurrent
+builds by several processes cannot mix. It is loaded with ``ctypes.CDLL``, which
 releases the GIL for the length of each call: decoding and augmenting
 threads or processes do not hold up the thread that launches the training
 step's kernels. A missing compiler, a failed build or a failed load raises;
@@ -28,6 +29,7 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "host_io.c"
+JPEG_SOURCE = _PKG / "csrc" / "jpeg.c"  # the codec behind data/jpeg.py
 _BUILD = _PKG / "_build"
 # No FMA contraction: the resize must round as numpy does (see host_io.c).
 # -fno-trapping-math changes no result (nothing here reads the FP exception
@@ -46,12 +48,17 @@ def _compiler() -> str:
     return found
 
 
+def _sources() -> tuple:
+    return SOURCE, JPEG_SOURCE
+
+
 def _build(lib_path: Path) -> None:
     cc = _compiler()
     _BUILD.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
         out = Path(tmp) / lib_path.name
-        proc = subprocess.run([cc, *CFLAGS, "-shared", "-o", str(out), str(SOURCE), "-lm"],
+        proc = subprocess.run([cc, *CFLAGS, "-shared", "-o", str(out),
+                               *map(str, _sources()), "-lm"],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"building the host core failed ({cc} exited "
@@ -64,7 +71,8 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            digest = hashlib.sha256(" ".join(CFLAGS).encode() + SOURCE.read_bytes())
+            digest = hashlib.sha256(" ".join(CFLAGS).encode()
+                                    + b"".join(p.read_bytes() for p in _sources()))
             path = _BUILD / f"libtcs_host_{digest.hexdigest()[:16]}.so"
             if not path.exists():
                 _build(path)
@@ -81,6 +89,13 @@ def lib() -> ctypes.CDLL:
             loaded.tcs_color_jitter.argtypes = [vp, vp, vp, ctypes.c_long, vp,
                                                 f64, f64, f64, f64, f64, f64]
             loaded.tcs_color_jitter.restype = None
+            ip, cp, lng = ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_long
+            loaded.tcs_jpeg_info.argtypes = [vp, lng, ip, ip, ip, ip, cp, i32]
+            loaded.tcs_jpeg_info.restype = i32
+            loaded.tcs_jpeg_decode.argtypes = [vp, lng, vp, lng, cp, i32]
+            loaded.tcs_jpeg_decode.restype = i32
+            loaded.tcs_jpeg_encode.argtypes = [vp, i32, i32, i32, vp, lng]
+            loaded.tcs_jpeg_encode.restype = lng
             _lib = loaded
         return _lib
 

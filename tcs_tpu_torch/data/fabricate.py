@@ -21,6 +21,10 @@ The trainer's trees, at the datasets' frame sizes by default:
   (one scene of it under ``15mm_focallength``), clean and final passes, with
   ``.pfm`` disparity and ``camera_data.txt``;
 - :func:`tartanair_train_tree`: TartanAir videos outside the held-out ones;
+- :func:`falling_things_tree`: ``FallingThings/fat/<scene>/`` with
+  ``<n>.left.jpg`` and ``<n>.right.jpg`` (the port's JPEG encoder, quality
+  95), ``<n>.left.depth.png`` (uint16, 0.1 mm) and ``_camera_settings.json``,
+  listed in ``filenames.txt``: a single-pair dataset, 960×540 by default;
 - :func:`kitti_raw_tree`: ``kitti_raw/<date>/`` with its three calibration
   files and ``<date>_drive_<n>_sync`` sequences of ``image_02``,
   ``image_03``, ``leastereo`` (uint16 disparity, none in the top quarter,
@@ -44,6 +48,7 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from tcs_tpu_torch.data import frame_utils, png
+from tcs_tpu_torch.data.jpeg import encode_jpeg
 from tcs_tpu_torch.data.synthetic import SyntheticStereoSequence
 
 KITTI_P_RECT_02 = (721.5377, 0.0, 609.5593, 44.85728, 0.0, 721.5377, 172.854,
@@ -179,6 +184,40 @@ def kitti_tree(root, scenes: Sequence[str] = ("000000",), frames: int = 11,
             f.write(_lines([np.linalg.inv(t)[:3].reshape(-1) for t in T]))
         with open(os.path.join(base, name + ".txt"), "w") as f:
             f.write("P_rect_02: " + " ".join(f"{v:.9g}" for v in p) + "\n")
+
+
+FALLING_THINGS_FX = 768.1605  # its cameras' focal length, px; the baseline is 6 cm
+
+
+def falling_things_tree(root, scenes: Sequence[str] = (
+        "single/002_master_chef_can_16k/kitchen_0", "mixed/kitchen_1"),
+        frames: int = 2, height: int = 540, width: int = 960, seed: int = 0) -> None:
+    """``root/FallingThings``: ``frames`` stereo pairs in each of ``scenes``,
+    each pair a frame of a two-plane sequence, the depth PNG in FallingThings'
+    unit (0.1 mm: ``readDispFallingThings`` takes disparity = fx · 6 · 100 /
+    depth)."""
+    rng = np.random.default_rng(seed)
+    base_dir = os.path.join(root, "FallingThings")
+    names = []
+    for name in scenes:
+        d = os.path.join(base_dir, "fat", name)
+        os.makedirs(d, exist_ok=True)
+        left, right, disp, _ = scene(rng, frames, height, width, fx=FALLING_THINGS_FX,
+                                     baseline=0.06)
+        for i in range(frames):
+            stem = os.path.join(d, f"{i:06d}")
+            for side, img in (("left", left[i]), ("right", right[i])):
+                with open(f"{stem}.{side}.jpg", "wb") as f:
+                    f.write(encode_jpeg(img, 95))
+            depth = np.round(FALLING_THINGS_FX * 6.0 * 100 / disp[i])
+            _write_png(f"{stem}.left.depth.png", np.clip(depth, 1, 65535).astype(np.uint16))
+            names.append(f"fat/{name}/{i:06d}.left.jpg")
+        with open(os.path.join(d, "_camera_settings.json"), "w") as f:
+            f.write('{"camera_settings": [{"name": "left", "intrinsic_settings": '
+                    f'{{"fx": {FALLING_THINGS_FX}, "fy": {FALLING_THINGS_FX}, '
+                    f'"cx": {width / 2}, "cy": {height / 2}}}}}]}}\n')
+    with open(os.path.join(base_dir, "filenames.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
 
 
 def _oxts(rng, frames: int) -> np.ndarray:

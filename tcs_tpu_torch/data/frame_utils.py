@@ -1,10 +1,11 @@
 """File readers and writers and pose parsers (the port's copy of
 ``tcs_tpu/data/frame_utils.py``; reference ``core/utils/frame_utils.py``).
 
-numpy only: PNG goes through :mod:`tcs_tpu_torch.data.png`, not PIL or a
-native decoder. Disparity readers return ``(disp, valid)`` where the format
-carries a validity channel; pose parsers return lists of world→camera
-(4, 4) float64 matrices.
+numpy and the port's host core only: PNG goes through
+:mod:`tcs_tpu_torch.data.png`, JPEG through :mod:`tcs_tpu_torch.data.jpeg`,
+PPM/PGM through :func:`read_ppm`, never PIL, OpenCV or libjpeg. Disparity
+readers return ``(disp, valid)`` where the format carries a validity
+channel; pose parsers return lists of world→camera (4, 4) float64 matrices.
 """
 
 from __future__ import annotations
@@ -16,19 +17,75 @@ from os.path import basename, splitext
 
 import numpy as np
 
-from tcs_tpu_torch.data import png
+from tcs_tpu_torch.data import jpeg, png
+
+_PNM_WHITESPACE = b" \t\n\v\f\r"
+
+
+def read_ppm(path) -> np.ndarray:
+    """A binary PGM (P5) or PPM (P6) as PIL reads it, which is ``tcs_tpu``'s
+    path for them: (H, W) or (H, W, 3); samples of maxval 255 as they are,
+    others scaled to 0..255 (``round(v / maxval * 255)``, half to even) as
+    uint8, except a PGM whose maxval is above 255, which PIL reads as int32
+    samples of 0..65535 (maxval 65535 as stored, others scaled to it)."""
+    data = np.fromfile(path, np.uint8).tobytes()
+    magic, pos = data[:2], 2
+    if magic not in (b"P5", b"P6") or len(data) < 3 or data[2:3] not in _PNM_WHITESPACE:
+        raise ValueError(f"{path}: not a binary PGM or PPM file (P5 / P6)")
+    pos = 3
+    tokens = []
+    while len(tokens) < 3:  # width, height, maxval; '#' comments to the line's end
+        token = b""
+        while pos < len(data):
+            c = data[pos:pos + 1]
+            pos += 1
+            if c in _PNM_WHITESPACE:
+                if token:
+                    break
+            elif c == b"#":
+                while pos < len(data) and data[pos:pos + 1] not in b"\r\n":
+                    pos += 1
+                pos += 1
+            else:
+                token += c
+        if not token.isdigit():
+            raise ValueError(f"{path}: a malformed PGM/PPM header")
+        tokens.append(int(token))
+    width, height, maxval = tokens
+    if not 0 < maxval < 65536:
+        raise ValueError(f"{path}: maxval {maxval} is not in 1..65535")
+    bands = 3 if magic == b"P6" else 1
+    count = width * height * bands
+    wide = maxval > 255
+    raw = np.frombuffer(data, ">u2" if wide else np.uint8, count, pos) if (
+        len(data) - pos >= count * (2 if wide else 1)) else None
+    if raw is None:
+        raise ValueError(f"{path}: the file ends before its {width}x{height} samples")
+    shape = (height, width, 3) if bands == 3 else (height, width)
+    out_max = 65535 if wide and bands == 1 else 255
+    if maxval == out_max:
+        vals = raw.astype(np.int32 if out_max == 65535 else np.uint8)
+    else:
+        scaled = np.minimum(out_max, np.round(raw.astype(np.float64) / maxval * out_max))
+        vals = scaled.astype(np.int32 if out_max == 65535 else np.uint8)
+    return vals.reshape(shape)
 
 
 def read_image(path) -> np.ndarray:
-    """RGB uint8 (H, W, 3). 16-bit files keep their high byte, gray (and
-    gray+alpha) files are tiled to 3 channels, an alpha channel is dropped."""
+    """RGB (H, W, 3), uint8 but for a 16-bit PGM (int32, see
+    :func:`read_ppm`). PNG: 16-bit files keep their high byte, gray (and
+    gray+alpha) files are tiled to 3 channels, an alpha channel is dropped.
+    JPEG: libjpeg's decode (:func:`tcs_tpu_torch.data.jpeg.read_jpeg`), gray
+    tiled. PPM/PGM: as PIL reads them, gray tiled."""
     ext = splitext(str(path))[-1].lower()
     if ext in (".jpg", ".jpeg"):
-        raise NotImplementedError(
-            f"{path}: the port reads PNG only; JPEG (FallingThings' frames, which"
-            " no recipe reads) has no decoder in the port")
+        img = jpeg.read_jpeg(path)
+        return np.tile(img, (1, 1, 3)) if img.shape[2] == 1 else img
+    if ext in (".ppm", ".pgm"):
+        img = read_ppm(path)
+        return np.tile(img[..., None], (1, 1, 3)) if img.ndim == 2 else img
     if ext != ".png":
-        raise ValueError(f"{path}: not an image format the port reads (PNG)")
+        raise ValueError(f"{path}: not an image format the port reads (PNG, JPEG, PPM/PGM)")
     img = png.read_png(path)
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)

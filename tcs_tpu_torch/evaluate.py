@@ -40,7 +40,7 @@ import torch
 
 from tcs_tpu_torch import device as device_lib
 from tcs_tpu_torch.config import ModelConfig
-from tcs_tpu_torch.data import frame_utils, png
+from tcs_tpu_torch.data import frame_utils
 from tcs_tpu_torch.data.datasets import (
     KITTI,
     SceneFlowDatasets,
@@ -50,6 +50,7 @@ from tcs_tpu_torch.data.datasets import (
 from tcs_tpu_torch.models.tc_stereo import CameraParams, TCStereo, TemporalState
 from tcs_tpu_torch.parallel import mesh
 from tcs_tpu_torch.utils.padder import InputPadder
+from tcs_tpu_torch.utils.video import MJPGWriter
 from tcs_tpu_torch.utils.visualization import pseudo_color_map
 
 logger = logging.getLogger(__name__)
@@ -323,11 +324,12 @@ def submit_kitti(model: TCStereo, cfg: ModelConfig, iters: int = 5,
                  ) -> Dict[str, float]:
     """Reference ``submit_kitti`` (:28): per-scene intrinsics, fixed baseline
     0.54, FPS timing (scenes after the 51st, frames after the 7th), frame 10
-    as a uint16 PNG ×256, or with ``submission=False`` one pseudo-colour PNG
-    per frame under ``video/<scene>/`` (the reference's MJPG ``.avi`` needs
-    OpenCV; ROADMAP). ``sharded``: each rank of the process group streams
-    and writes its share of the scenes, and the FPS is over every rank's
-    timed frames."""
+    as a uint16 PNG ×256, or with ``submission=False`` the pseudo-colour
+    frames as one Motion-JPEG ``video/<scene>.avi`` a scene at 2 fps (the
+    reference's ``cv2.VideoWriter``, written by :class:`MJPGWriter`).
+    ``sharded``: each rank of the process group streams its share of the
+    scenes and writes their files, and the FPS is over every rank's timed
+    frames."""
     ds = KITTI(None, root=root, is_test=True, mode="temporal",
                image_set=image_set, index_by_scene=True,
                num_frames=num_frames if submission else 21)
@@ -339,24 +341,32 @@ def submit_kitti(model: TCStereo, cfg: ModelConfig, iters: int = 5,
         calib = frame_utils.read_calib_file(os.path.join(scene_path, scene + ".txt"))
         K = frame_utils.intrinsics_from_p_rect(calib["P_rect_02"])
         ev.reset()
-        for frame_ind, (p1, p2, T) in enumerate(zip(img1s, img2s, poses)):
-            i1 = frame_utils.read_image(p1).astype(np.float32)
-            i2 = frame_utils.read_image(p2).astype(np.float32)
-            t0 = time.time()
-            disp = ev(i1, i2, K, 0.54, T)  # numpy: the device has finished
-            dt = time.time() - t0
-            if val_id > 50 and frame_ind > 6:
-                elapsed.append(dt)
-            if submission and frame_ind == 10:
-                sub_dir = os.path.join(out_dir, "disp_0")
-                os.makedirs(sub_dir, exist_ok=True)
-                frame_utils.write_uint16_png(os.path.join(sub_dir, scene + "_10.png"),
-                                             (disp * 256.0).astype(np.uint16))
-            elif not submission:
-                png_dir = os.path.join(out_dir, "video", scene)
-                os.makedirs(png_dir, exist_ok=True)
-                png.write_png(os.path.join(png_dir, f"{frame_ind:06d}.png"),
-                              pseudo_color_map(disp, vmin=0, vmax=96, kitti_style=True))
+        video = None
+        try:
+            for frame_ind, (p1, p2, T) in enumerate(zip(img1s, img2s, poses)):
+                i1 = frame_utils.read_image(p1).astype(np.float32)
+                i2 = frame_utils.read_image(p2).astype(np.float32)
+                t0 = time.time()
+                disp = ev(i1, i2, K, 0.54, T)  # numpy: the device has finished
+                dt = time.time() - t0
+                if val_id > 50 and frame_ind > 6:
+                    elapsed.append(dt)
+                if submission and frame_ind == 10:
+                    sub_dir = os.path.join(out_dir, "disp_0")
+                    os.makedirs(sub_dir, exist_ok=True)
+                    frame_utils.write_uint16_png(os.path.join(sub_dir, scene + "_10.png"),
+                                                 (disp * 256.0).astype(np.uint16))
+                elif not submission:
+                    rgb = pseudo_color_map(disp, vmin=0, vmax=96, kitti_style=True)
+                    if video is None:
+                        vid_dir = os.path.join(out_dir, "video")
+                        os.makedirs(vid_dir, exist_ok=True)
+                        video = MJPGWriter(os.path.join(vid_dir, scene + ".avi"), 2,
+                                           (rgb.shape[1], rgb.shape[0]))
+                    video.write(rgb)
+        finally:
+            if video is not None:
+                video.release()
     elapsed = _gathered(elapsed, sharded)
     fps = 1.0 / (np.mean(elapsed) + 1e-5) if elapsed else 0.0
     logger.info("Submission KITTI: %.2f FPS", fps)

@@ -9,11 +9,47 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tcs_tpu_torch.ops.sampler import coords_grid
 from tcs_tpu_torch.ops.splat import softsplat
 
 # 8-neighbour offsets in the reference's kernel order (v, u) relative to the
 # 3x3 window; reference geo_utils.py:83.
 _NEIGHBOUR_VUS = ((0, 0), (0, 1), (0, 2), (1, 2), (2, 2), (2, 1), (2, 0), (1, 0))
+
+
+def disp2depth(disp: torch.Tensor, baseline: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
+    """depth = baseline·fx / max(disp, 0.001); disp (B, H, W, 1) (reference
+    geo_utils.py:7)."""
+    bf = (baseline * fx).reshape(-1, 1, 1, 1)
+    return bf / torch.clamp(disp, min=0.001)
+
+
+def depth2disp(depth: torch.Tensor, baseline: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
+    """disp = baseline·fx / depth, non-finite → −1 (reference geo_utils.py:19)."""
+    bf = (baseline * fx).reshape(-1, 1, 1, 1)
+    return _finite_or_neg1(bf / depth)
+
+
+def pixel2point(depth: torch.Tensor, K_inv: torch.Tensor) -> torch.Tensor:
+    """Camera-space points of each pixel: depth · K⁻¹ (x, y, 1); depth
+    (B, H, W, 1), K_inv (B, 3, 3) → (B, H, W, 3) (reference geo_utils.py:32)."""
+    B, H, W, _ = depth.shape
+    grid = coords_grid(B, H, W, depth.dtype, depth.device)
+    homo = torch.cat([grid, torch.ones_like(depth)], dim=-1)
+    return depth * torch.einsum("bij,bhwj->bhwi", K_inv, homo)
+
+
+def point2pixel(point: torch.Tensor, depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Pixels of camera-space points, (K·P) / depth with non-finite → −1;
+    point (B, H, W, 3), depth (B, H, W, 1) → (B, H, W, 2) (reference
+    geo_utils.py:45)."""
+    return _finite_or_neg1(torch.einsum("bij,bhwj->bhwi", K, point) / depth)[..., :2]
+
+
+def relative_transform(x: torch.Tensor, relative_T: torch.Tensor) -> torch.Tensor:
+    """R·x + t of points (B, H, W, 3) under rigid transforms (B, 4, 4)."""
+    R, t = relative_T[:, :3, :3], relative_T[:, :3, 3]
+    return torch.einsum("bij,bhwj->bhwi", R, x) + t[:, None, None, :]
 
 
 def cal_relative_transformation(T1: torch.Tensor, T2: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,71 @@
-"""Step timing and device memory (the port's copy of ``StepTimer`` and
-``device_memory_stats`` of ``tcs_tpu/utils/profiling.py``)."""
+"""Tracing, step timing and device memory (the port's copy of
+``tcs_tpu/utils/profiling.py``).
+
+- :func:`trace`: ``torch.profiler`` over the CPU and, where there is a GPU,
+  the CUDA activities, written as a Chrome trace under a directory that
+  :func:`tcs_tpu_torch.utils.trace_summary.summarize_trace` reads; with a
+  model, one range a submodule call, named by its path;
+- :class:`StepTimer`: a rolling wall-clock step timer;
+- :func:`device_memory_stats`: the caching allocator's bytes on a GPU.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import os
+import socket
 import time
 from typing import Dict, Optional
 
 import torch
+
+from tcs_tpu_torch.utils.trace_summary import MODULE_RANGE
+
+
+def _module_ranges(model: torch.nn.Module) -> list:
+    """Hooks that push a profiler range named ``module::<path>`` (the root:
+    its class name) around each submodule's forward; returns their handles."""
+    handles = []
+    for path, mod in model.named_modules():
+        label = MODULE_RANGE + (path or type(model).__name__)
+        open_ranges = []
+
+        def enter(_mod, _args, label=label, open_ranges=open_ranges):
+            rf = torch.autograd.profiler.record_function(label)
+            rf.__enter__()
+            open_ranges.append(rf)
+
+        def leave(_mod, _args, _out, open_ranges=open_ranges):
+            if open_ranges:
+                open_ranges.pop().__exit__(None, None, None)
+
+        handles.append(mod.register_forward_pre_hook(enter))
+        handles.append(mod.register_forward_hook(leave, always_call=True))
+    return handles
+
+
+@contextlib.contextmanager
+def trace(logdir: str, model: Optional[torch.nn.Module] = None):
+    """Profile the block (CPU ops and, on a GPU, its kernels, copies and
+    fills) and write ``<logdir>/<host>_<pid>.<ns>.pt.trace.json.gz``. With
+    ``model``, each submodule call is a range named by its
+    ``named_modules()`` path; the hooks exist only inside the block, so the
+    model runs outside it exactly as without them. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    handles = _module_ranges(model) if model is not None else []
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+    finally:
+        for h in handles:
+            h.remove()
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json.gz"))
 
 
 class StepTimer:

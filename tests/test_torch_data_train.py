@@ -309,8 +309,9 @@ def _single_pair_trees(root):
                              rng.uniform(1, 30, (24, 40)).astype(np.float32))
         png.write_png(os.path.join(base, "mask0nocc.png"),
                       (rng.random((24, 40)) < 0.8).astype(np.uint8) * 255)
-    os.makedirs(os.path.join(root, "FallingThings/fat/single"), exist_ok=True)
-    with open(os.path.join(root, "FallingThings/filenames.txt"), "w") as f:
+    # JPEG frames through the port's encoder, depth in FallingThings' unit
+    fabricate.falling_things_tree(root, scenes=("single",), frames=2, height=24, width=40)
+    with open(os.path.join(root, "FallingThings/filenames.txt"), "w") as f:  # unsorted
         f.write("fat/single/000001.left.jpg\nfat/single/000000.left.jpg\n")
 
 
@@ -387,8 +388,10 @@ def test_load_sample_plain_path_is_tcs_tpus(trees, plain_paths, case):
             theirs.load_sample(0, np.random.default_rng(0))
         for part in theirs.parts:
             part.intrinsic_K = None
-    pool = 2 if case == "middlebury_falling" else len(ours)  # FallingThings' frames are JPEG
-    for i in np.random.default_rng(0).choice(pool, min(3, pool), replace=False):
+    # every single-pair sample: FallingThings' JPEG ones and Middlebury's
+    picks = (range(len(ours)) if case == "middlebury_falling"
+             else np.random.default_rng(0).choice(len(ours), min(3, len(ours)), replace=False))
+    for i in picks:
         a = ours.load_sample(int(i), np.random.default_rng((5, int(i))))
         b = theirs.load_sample(int(i), np.random.default_rng((5, int(i))))
         assert a.keys() == b.keys()
@@ -404,7 +407,8 @@ def test_single_pair_readers_match_tcs_tpu(trees):
                                (frame_utils.readDispMiddlebury, jax_fu.readDispMiddlebury, mid)):
         for a, b in zip(ours(path), theirs(path)):
             assert np.array_equal(a, b)
-    ft = os.path.join(trees, "FallingThings/fat/single")
+    ft = os.path.join(trees, "FallingThings/fat/readers")  # beside the dataset's files
+    os.makedirs(ft, exist_ok=True)
     png.write_png(os.path.join(ft, "000000.left.depth.png"),
                   np.random.default_rng(2).integers(1, 60000, (24, 40)).astype(np.uint16))
     with open(os.path.join(ft, "_camera_settings.json"), "w") as f:

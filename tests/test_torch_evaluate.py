@@ -30,8 +30,10 @@ from tcs_tpu_torch import evaluate
 from tcs_tpu_torch.cli import evaluate as cli
 from tcs_tpu_torch.convert import state_dict_from_jax
 from tcs_tpu_torch.data import fabricate, frame_utils
+from tcs_tpu_torch.data.jpeg import read_jpeg
 from tcs_tpu_torch.models import TCStereo
 from tcs_tpu_torch.utils import checkpoint
+from tcs_tpu_torch.utils.video import read_avi
 from tools.convert_torch_ckpt import convert_state_dict
 
 # The test processes share the host: two intra-op threads each, so that
@@ -175,10 +177,10 @@ def test_submit_kitti_writes_pseudo_colour_frames(trees, weights, tmp_path):
     out = evaluate.submit_kitti(port, CFG, iters=1, root=os.path.join(trees, "KITTI"),
                                 out_dir=str(tmp_path), submission=False, device="cpu")
     assert out == {"kitti-fps": 0.0}
-    frames = sorted(os.listdir(tmp_path / "video" / "000000"))
-    assert frames == [f"{i:06d}.png" for i in range(11)]
-    img = frame_utils.read_image(str(tmp_path / "video" / "000000" / frames[-1]))
-    assert img.shape == (H, W, 3)
+    assert os.listdir(tmp_path / "video") == ["000000.avi"]  # one MJPG video a scene
+    avi = read_avi(tmp_path / "video" / "000000.avi")
+    assert (avi.fourcc, avi.fps, avi.width, avi.height, len(avi.frames)) == ("MJPG", 2.0, W, H, 11)
+    assert read_jpeg(avi.frames[-1]).shape == (H, W, 3)
 
 
 @pytest.fixture(scope="module")

@@ -67,8 +67,32 @@ def test_recipe_launchers_run_the_port_under_torch_distributed_run(path):
 def test_evaluation_path_imports_without_pil_or_opencv():
     blocked = "import sys; sys.modules['PIL'] = sys.modules['cv2'] = None; "
     subprocess.run([sys.executable, "-c", blocked + "import tcs_tpu_torch.evaluate, "
-                    "tcs_tpu_torch.cli.evaluate, tcs_tpu_torch.utils.logging_utils"],
+                    "tcs_tpu_torch.cli.evaluate, tcs_tpu_torch.utils.logging_utils, "
+                    "tcs_tpu_torch.data.jpeg, tcs_tpu_torch.utils.video, "
+                    "tcs_tpu_torch.utils.profiling, tcs_tpu_torch.utils.trace_summary"],
                    cwd=ROOT, check=True)
+
+
+def test_jpeg_and_video_run_without_pil_or_opencv(tmp_path):
+    """The codec, the PPM reader and the video writer and reader do their
+    work with PIL and OpenCV blocked, as on the card's machine."""
+    code = f"""
+import sys
+sys.modules['PIL'] = sys.modules['cv2'] = None
+import numpy as np
+from tcs_tpu_torch.data import frame_utils, jpeg
+from tcs_tpu_torch.utils.video import MJPGWriter, read_avi
+img = np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)
+data = jpeg.encode_jpeg(img, 90)
+assert jpeg.read_jpeg(data).shape == (24, 40, 3)
+with open({str(tmp_path / "p.ppm")!r}, "wb") as f:
+    f.write(b"P6 40 24 255\\n" + img.tobytes())
+assert np.array_equal(frame_utils.read_image({str(tmp_path / "p.ppm")!r}), img)
+with MJPGWriter({str(tmp_path / "v.avi")!r}, 2, (40, 24)) as v:
+    v.write(img)
+assert read_avi({str(tmp_path / "v.avi")!r}).frames == [jpeg.encode_jpeg(img, 95)]
+"""
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
 
 
 def test_cuda_entry_points_raise_without_a_gpu():
