@@ -82,7 +82,22 @@ Phases, in order; any failure exits non-zero:
    frames of phase 4's main path and one step of phase 7's training step,
    ``trace_summary.summarize_trace`` of each (device time and events, the
    tables by module, family and kernel, the share of no module), each hand
-   kernel's events in the trace held to its wrapper's launch count.
+   kernel's events in the trace held to its wrapper's launch count;
+13. ``tcs_tpu``'s Orbax checkpoints, read and written by the port alone
+   (``utils/zstd.py``, ``utils/ocdbt.py``, ``utils/orbax_format.py``): (a)
+   the committed fixtures (``tests/fixtures/orbax/``: zstd frames, a
+   ``CheckpointManager`` directory with an uncommitted step, a
+   ``save_params`` export) decoded on the card's host to ``tcs_tpu``'s
+   digests bit for bit; (b) ``tcs_tpu``'s trained weights at the SceneFlow
+   recipe (B4 320x720, 2 frames, 5 iterations) in the fp32 config with TF32
+   off and cuDNN's deterministic algorithms: 3 steps, the state written with
+   ``save_tcs_tpu`` and read into a fresh model, AdamW and schedule (equal bit
+   for bit: every parameter, both moments, the step, the learning rate), 3
+   more steps held to the 3 that the written run takes on (bit for bit, or,
+   where they differ, the library calls torch reports as nondeterministic
+   named and the losses held to 1e-6), with the write and read rates; (c) the evaluation CLI on phase 8's TartanAir tree with
+   ``--restore_ckpt`` on (b)'s ``save_params`` export, against the same
+   weights loaded directly.
 
 The last line of standard output is the JSON device record. Run from the
 repository root: ``python chip_smoke.py``. ``python chip_smoke.py
@@ -1868,8 +1883,7 @@ def phase_data_parallel(smi: str, train_ms: float, eval_tree: dict, train_tree: 
         ddp_pair(smi, "nccl", ("cuda:0", "cuda:1"), want, "(e) across two cards over NCCL")
     else:
         print(f"ddp across cards: not run ({torch.cuda.device_count()} card)")
-    for tree in (eval_tree, train_tree):
-        tree["tmp_dir"].cleanup()
+    train_tree["tmp_dir"].cleanup()  # phase 13 evaluates on eval_tree's TartanAir tree
     print(f"data parallel: phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return {k: counts[k] + cli_counts[k] for k in counts}
 
@@ -2171,6 +2185,217 @@ def phase_jpeg_and_trace(smi: str) -> dict:
     return total
 
 
+# Phase 13: tcs_tpu's Orbax checkpoints. (b) trains the fp32 config at the
+# SceneFlow recipe's shapes from tcs_tpu's trained weights; each step takes
+# its own synthetic batch (seed ORBAX_SEED + step).
+ORBAX_FIXTURES = os.path.join("tests", "fixtures", "orbax")
+ORBAX_STEPS, ORBAX_SEED = 3, 100
+RESUME_RTOL = 1e-6  # of a loss, where the step is not deterministic on the card
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block, put back after."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def nondeterministic_ops(step, batch) -> list:
+    """The library calls of one training step that torch reports as having
+    no deterministic implementation on the card (its warnings under
+    ``use_deterministic_algorithms(True, warn_only=True)``)."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0][:160] for w in caught
+                   if "determinis" in str(w.message)})
+
+
+def orbax_fixtures(smi: str) -> None:
+    """(a) The committed fixtures, decoded by the port to tcs_tpu's digests."""
+    import hashlib
+
+    from tcs_tpu_torch.utils import orbax_format, zstd
+
+    with open(os.path.join(ORBAX_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+    t0 = time.perf_counter()
+    for name, want in sorted(digests["zstd"].items()):
+        with open(os.path.join(ORBAX_FIXTURES, "zstd", name), "rb") as f:
+            got = hashlib.sha256(zstd.decompress(f.read(), want["size"])).hexdigest()
+        if got != want["sha256"]:
+            fail(f"orbax (a): the zstd fixture {name} decodes to sha256 {got}, not "
+                 f"{want['sha256']}")
+    steps = orbax_format.step_dirs(os.path.join(ORBAX_FIXTURES, "manager"))
+    if sorted(steps) != [37]:
+        fail(f"orbax (a): committed steps {sorted(steps)}; the uncommitted one must be skipped")
+    for tag, path in (("manager", steps[37]), ("export", os.path.join(ORBAX_FIXTURES, "export"))):
+        got = orbax_format.tree_digests(orbax_format.read_tree(path))
+        bad = sorted(k for k in set(got) | set(digests[tag]) if got.get(k) != digests[tag].get(k))
+        if bad:
+            fail(f"orbax (a): {tag} leaves differ from tcs_tpu's restore: {bad}")
+    print(f"orbax (a): {len(digests['zstd'])} zstd frames, {len(digests['manager'])} leaves of "
+          f"the CheckpointManager step and {len(digests['export'])} of the save_params export "
+          f"equal tcs_tpu's digests bit for bit, in {time.perf_counter() - t0:.3f} s on the "
+          f"host of {smi}")
+
+
+def _train_state(model, step_fn) -> list:
+    opt, sched = step_fn.optimizer, step_fn.scheduler
+    out = [t.detach().clone() for t in model.state_dict().values()]
+    for p in model.parameters():
+        st = opt.state[p]
+        out += [st["exp_avg"].clone(), st["exp_avg_sq"].clone(), st["step"].clone()]
+    return out + [torch.tensor([sched.last_epoch, opt.param_groups[0]["lr"]], dtype=torch.float64)]
+
+
+def phase_orbax(smi: str, eval_tree: dict = None) -> dict:
+    """Phase 13; returns the kernels' launches of the resumed steps."""
+    import tempfile
+
+    from tcs_tpu_torch import ModelConfig
+    from tcs_tpu_torch import evaluate as ev
+    from tcs_tpu_torch.config import sceneflow_recipe
+    from tcs_tpu_torch.data import fabricate
+    from tcs_tpu_torch.models import TCStereo
+    from tcs_tpu_torch.ops import _kernels
+    from tcs_tpu_torch.train import make_train_step
+    from tcs_tpu_torch.utils import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    orbax_fixtures(smi)
+    os.makedirs("runs", exist_ok=True)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="orbax_", dir="runs")
+    cfg = sceneflow_recipe()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, mixed_precision=False, corr_dtype="float32"))
+    batches = [_synthetic_batch(TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_FRAMES, ORBAX_SEED + k, "cuda")
+               for k in range(2 * ORBAX_STEPS)]
+    export = os.path.join(tmp_dir.name, "export")
+    eval_root = eval_tree["root"] if eval_tree else os.path.join(tmp_dir.name, "eval")
+    if not eval_tree:  # phase 13 alone: phase 8's TartanAir tree
+        fab, kw, _, _ = EVAL_TREES["TartanAir"]
+        getattr(fabricate, fab)(eval_root, seed=0, **dict(kw, sequences=(
+            ("gascola", "Easy", "P001"), ("hospital", "Hard", "P042"))))
+
+    def trained(seed):
+        model = TCStereo(cfg.model, seed=seed)
+        ck.load_params_npz(model, FIXTURE)
+        return model, make_train_step(model, cfg)
+
+    def run(step_fn, ks):
+        return [step_fn(batches[k])["live_loss"].item() for k in ks]
+
+    procs = []  # the CLI of (c): stopped here whatever happens
+    try:
+        with tf32_off(), deterministic_cudnn():
+            # the uninterrupted run writes its state after step 3 and goes on; a
+            # fresh model, AdamW and schedule read that state and take the same
+            # steps 4-6
+            t0 = time.perf_counter()
+            model, step_fn = trained(0)
+            whole = run(step_fn, range(ORBAX_STEPS))
+            state = _train_state(model, step_fn)
+            run_dir = os.path.join(tmp_dir.name, "sceneflow")
+            nbytes = sum(t.numel() * t.element_size() for t in model.parameters()) * 3
+            torch.cuda.synchronize()
+            t_steps = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ck.save_tcs_tpu(run_dir, ORBAX_STEPS, model, step_fn.optimizer, step_fn.scheduler)
+            t_write = time.perf_counter() - t0
+            # (c)'s CLI evaluates step 3's export in its own process while this
+            # one trains on: it shares the card and changes no result here
+            ck.save_params(model, export)
+            weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            cli_log = open(os.path.join(tmp_dir.name, "cli.log"), "w+")
+            t_cli = time.perf_counter()
+            cli = subprocess.Popen([sys.executable, "-m", "tcs_tpu_torch.cli.evaluate", "--dataset",
+                                    "TartanAir", "--data_root", eval_root, "--restore_ckpt", export,
+                                    "--valid_iters", str(EVAL_ITERS)],
+                                   stdout=subprocess.PIPE, stderr=cli_log, text=True)
+            procs.append(cli)
+            whole += run(step_fn, range(ORBAX_STEPS, 2 * ORBAX_STEPS))
+            del model, step_fn
+            fresh = TCStereo(cfg.model, seed=2)
+            fresh_fn = make_train_step(fresh, cfg)
+            t0 = time.perf_counter()
+            got_step = ck.restore_tcs_tpu(run_dir, fresh, fresh_fn.optimizer, fresh_fn.scheduler)
+            torch.cuda.synchronize()
+            t_read = time.perf_counter() - t0
+            back = _train_state(fresh, fresh_fn)
+            same = len(back) == len(state) and all(torch.equal(a, b) for a, b in zip(back, state))
+            del back, state
+            print(f"orbax (b): {ORBAX_STEPS} steps from tcs_tpu's trained weights in "
+                  f"{t_steps:.2f} s (model, first step included); save_tcs_tpu of step "
+                  f"{ORBAX_STEPS} ({nbytes / 1e6:.1f} MB of params and moments) {t_write:.3f} s, "
+                  f"{nbytes / 1e6 / t_write:.1f} MB/s written; restore_tcs_tpu into a fresh "
+                  f"model {t_read:.3f} s, {nbytes / 1e6 / t_read:.1f} MB/s read (to the card); "
+                  f"on {smi}")
+            print(f"orbax (b): the restored state equals the written one bit for bit (every "
+                  f"parameter, both moments, the step, the learning rate): {same}; step {got_step}")
+            if not same or got_step != ORBAX_STEPS:
+                fail("orbax (b): the state read back differs from the state written")
+            _kernels.reset_launches()
+            resumed = run(fresh_fn, range(ORBAX_STEPS, 2 * ORBAX_STEPS))
+            torch.cuda.synchronize()
+            counts = dict(_kernels.launches)
+            exact = resumed == whole[ORBAX_STEPS:]
+            racy = [] if exact else nondeterministic_ops(fresh_fn, batches[0])
+        want = {"corr_lookup": ORBAX_STEPS * TRAIN_FRAMES * TRAIN_ITERS,
+                "corr_lookup_bwd": ORBAX_STEPS * TRAIN_FRAMES * TRAIN_ITERS,
+                "splat_sum": ORBAX_STEPS * (TRAIN_FRAMES - 1), "splat_sum_bwd": 0}
+        print(f"orbax (b): losses uninterrupted {whole}, resumed {resumed}: equal bit for bit "
+              f"{exact}; resumed steps' launches {counts} expected {want}")
+        if counts != want:
+            fail(f"orbax (b): resumed launch counts {counts} != {want}")
+        if not exact:  # the step is not deterministic on the card: name what is not
+            rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[ORBAX_STEPS:]))
+            print(f"orbax (b): library calls torch reports as nondeterministic in a step: "
+                  f"{racy or 'none'}; resumed losses against uninterrupted, max relative "
+                  f"{rel:.3e} (bound {RESUME_RTOL})")
+            if not rel <= RESUME_RTOL:
+                fail(f"orbax (b): resumed losses {resumed} against {whole[ORBAX_STEPS:]}")
+        print(f"orbax (b) took {time.perf_counter() - t_phase:.1f} s with (a)")
+
+        t_c = time.perf_counter()
+        direct = TCStereo(ModelConfig(), seed=5)
+        direct.load_state_dict(weights)
+        want_res = ev.validate_tartanair(direct, ModelConfig(), iters=EVAL_ITERS, root=eval_root)
+        out, _ = cli.communicate(timeout=600)
+        cli_log.seek(0)
+        if cli.returncode != 0:
+            fail(f"orbax (c): the evaluation CLI exited {cli.returncode}:\n"
+                 f"{cli_log.read()[-4000:]}")
+        cli_log.close()
+        got_res = json.loads(out.strip().splitlines()[-1])
+        print(f"orbax (c): evaluation CLI --restore_ckpt <step {ORBAX_STEPS}'s save_params "
+              f"export>, started beside (b)'s last steps, done {time.perf_counter() - t_cli:.2f} "
+              f"s after its start: {json.dumps(got_res)}; the weights loaded directly: "
+              f"{json.dumps(want_res)}; equal: {got_res == want_res}")
+        if got_res != want_res:
+            fail("orbax (c): the CLI on the export gives other metrics than the weights directly")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp_dir.cleanup()
+    print(f"orbax: phase 13 took {time.perf_counter() - t_phase:.1f} s ((c) after (b) "
+          f"{time.perf_counter() - t_c:.1f} s)")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2190,6 +2415,8 @@ def main() -> None:
     paths["data_parallel"] = phase_data_parallel(smi, train_ms, eval_tree, train_tree)
     paths["trained_weights"] = phase_trained_weights(smi)
     paths["jpeg_and_trace"] = phase_jpeg_and_trace(smi)
+    paths["orbax_resume"] = phase_orbax(smi, eval_tree)
+    eval_tree["tmp_dir"].cleanup()
     # `launches` sums the driven paths, each of which set the counts to 0
     # before it and read them after. The times and the bound are at the
     # shapes of the path that launches the kernel most, in the type it runs

@@ -6,14 +6,20 @@ Examples:
   python -m tcs_tpu_torch.cli.evaluate --dataset TartanAir --restore_ckpt tartanair.pth
   python -m tcs_tpu_torch.cli.evaluate --dataset things --restore_ckpt sceneflow.pth
   python -m tcs_tpu_torch.cli.evaluate --dataset kitti --restore_ckpt kitti.pth
+  python -m tcs_tpu_torch.cli.evaluate --dataset TartanAir \
+      --restore_ckpt checkpoints/tartanair
   python -m tcs_tpu_torch.cli.evaluate --dataset TartanAir --device cpu
   python -m torch.distributed.run --nproc_per_node 2 -m tcs_tpu_torch.cli.evaluate \
       --dataset TartanAir --sharded --restore_ckpt tartanair.pth
 
-``--restore_ckpt`` takes a ``.pth`` file in the reference's format
-(:mod:`tcs_tpu_torch.utils.checkpoint`); without it the model keeps weights
-drawn from seed 0. ``--sharded`` under ``python -m torch.distributed.run``
-streams each process's share of the sequences on its own card and gives the
+``--restore_ckpt`` takes what ``scripts/evaluate.py`` takes, and the port's
+formats (:func:`tcs_tpu_torch.utils.checkpoint.load_any`): a ``.pth`` file in
+the reference's format, ``tcs_tpu``'s ``.npz``, ``tcs_tpu``'s Orbax
+``save_params`` directory, a ``tcs_tpu`` ``CheckpointManager`` directory (its
+newest step's params), or a directory of the port's full checkpoints (its
+newest); without it the model keeps weights drawn from seed 0.
+``--sharded`` under ``python -m torch.distributed.run`` streams each
+process's share of the sequences on its own card and gives the
 single-process results (``evaluate.py``); without the launcher it is the
 single-process run. The result dict is printed as the last line, in JSON, by
 the first process.
@@ -33,7 +39,9 @@ def parse_args(argv=None):
     p.add_argument("--dataset", required=True,
                    choices=["kitti", "things", "TartanAir"])
     p.add_argument("--restore_ckpt", default=None,
-                   help="weights as a .pth file in the reference's format")
+                   help="weights: a .pth file (the reference's format), tcs_tpu's .npz, "
+                        "tcs_tpu's Orbax save_params or CheckpointManager directory "
+                        "(its newest step), or a directory of the port's checkpoints")
     p.add_argument("--data_root", default="datasets")
     p.add_argument("--valid_iters", type=int, default=5)
     p.add_argument("--max_sequences", type=int, default=None)
@@ -87,14 +95,14 @@ def build_model_config(args):
 def main(argv=None):
     """Run one evaluator; returns its result dict."""
     args = parse_args(argv)
-    if args.restore_ckpt and not os.path.isfile(args.restore_ckpt):
-        sys.exit(f"error: checkpoint file not found: {args.restore_ckpt}")
+    if args.restore_ckpt and not os.path.exists(args.restore_ckpt):
+        sys.exit(f"error: checkpoint not found: {args.restore_ckpt}")
     logging.basicConfig(level=logging.INFO)
 
     from tcs_tpu_torch import evaluate as ev
     from tcs_tpu_torch.models import TCStereo
     from tcs_tpu_torch.parallel import mesh
-    from tcs_tpu_torch.utils.checkpoint import load_weights
+    from tcs_tpu_torch.utils.checkpoint import load_any
 
     if args.sharded:
         mesh.initialize_distributed(*mesh.launcher_args(), device=args.device)
@@ -105,7 +113,7 @@ def main(argv=None):
         n = sum(p.numel() for p in model.parameters())
         print(f"The model has {n / 1e6:.2f}M learnable parameters.")
         if args.restore_ckpt:
-            load_weights(model, args.restore_ckpt)
+            load_any(model, args.restore_ckpt)
             print(f"Loaded checkpoint {args.restore_ckpt}")
 
         common = dict(iters=args.valid_iters, device=device, sharded=mesh.active())

@@ -35,7 +35,9 @@ def parse_args(argv=None):
     p.add_argument("--data_root", default="datasets")
     p.add_argument("--checkpoint_dir", default="checkpoints")
     p.add_argument("--restore_ckpt", default=None,
-                   help="initial weights: a .pth file or a directory of checkpoints")
+                   help="initial weights: a .pth or .npz file, a directory of the "
+                        "port's checkpoints, or tcs_tpu's Orbax save_params or "
+                        "CheckpointManager directory")
     p.add_argument("--num_steps", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)

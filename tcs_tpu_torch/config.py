@@ -140,7 +140,10 @@ def tartanair_recipe() -> TrainConfig:
 
 def kitti_raw_recipe(restore: str = "checkpoints/tartanair") -> TrainConfig:
     """``KITTI_ddp_train.sh``: 60k steps, b4, lr 1e-4, 320x1024, fl 4, from
-    the TartanAir recipe's weights."""
+    the TartanAir recipe's weights. ``restore`` is anything
+    ``utils.checkpoint.load_any`` reads: the port's TartanAir run directory,
+    a weights file, or a ``tcs_tpu`` run's Orbax directory (the default's
+    layout in ``tcs_tpu``), whose newest step's params are taken."""
     return TrainConfig(name="KITTI_RAW", train_dataset="kitti_raw", lr=1e-4,
                        num_steps=60_000, batch_size=4, image_size=(320, 1024),
                        frame_length=4, saturation_range=(0.7, 1.3),

@@ -1,5 +1,5 @@
-"""Build, load and call the port's host core (``tcs_tpu_torch/csrc/host_io.c``
-and ``csrc/jpeg.c``).
+"""Build, load and call the port's host core (``tcs_tpu_torch/csrc/host_io.c``,
+``csrc/jpeg.c`` and ``csrc/zstd.c``).
 
 The port's counterpart of ``tcs_tpu/data/native_io.py``. At first use the C
 sources are compiled with the host compiler (``cc``, the one ``nvcc`` drives)
@@ -30,6 +30,7 @@ import numpy as np
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "host_io.c"
 JPEG_SOURCE = _PKG / "csrc" / "jpeg.c"  # the codec behind data/jpeg.py
+ZSTD_SOURCE = _PKG / "csrc" / "zstd.c"  # the decoder behind utils/zstd.py
 _BUILD = _PKG / "_build"
 # No FMA contraction: the resize must round as numpy does (see host_io.c).
 # -fno-trapping-math changes no result (nothing here reads the FP exception
@@ -49,7 +50,7 @@ def _compiler() -> str:
 
 
 def _sources() -> tuple:
-    return SOURCE, JPEG_SOURCE
+    return SOURCE, JPEG_SOURCE, ZSTD_SOURCE
 
 
 def _build(lib_path: Path) -> None:
@@ -96,6 +97,12 @@ def lib() -> ctypes.CDLL:
             loaded.tcs_jpeg_decode.restype = i32
             loaded.tcs_jpeg_encode.argtypes = [vp, i32, i32, i32, vp, lng]
             loaded.tcs_jpeg_encode.restype = lng
+            loaded.tcs_zstd_decompress.argtypes = [vp, lng, vp, lng, cp, i32]
+            loaded.tcs_zstd_decompress.restype = lng
+            loaded.tcs_zstd_content_size.argtypes = [vp, lng]
+            loaded.tcs_zstd_content_size.restype = ctypes.c_longlong
+            loaded.tcs_crc32c.argtypes = [ctypes.c_uint, vp, lng]
+            loaded.tcs_crc32c.restype = ctypes.c_uint
             _lib = loaded
         return _lib
 

@@ -2,8 +2,9 @@
 reference ``train_stereo.py:272-450``).
 
 Builds the recipe's dataset and loader, a seeded model on the device and its
-train step; resumes from the newest full checkpoint of the run, or else
-starts from ``restore_ckpt``'s weights; trains, checkpointing every
+train step; resumes from the newest full checkpoint of the run, or else from
+the newest ``tcs_tpu`` step in the run's directory, or else starts from
+``restore_ckpt``'s weights; trains, checkpointing every
 ``validation_frequency`` steps while the failure detector is clean and then
 calling the ``validate_fn`` hook; checkpoints and returns on SIGTERM; saves a
 final checkpoint.
@@ -23,10 +24,25 @@ Three faults of ``tcs_tpu``'s trainer are not copied:
   again (``tcs_tpu/train/trainer.py:125-131``); the port saves the loader's
   epoch and batch in each checkpoint and goes on from there;
 - divergence before any checkpoint: ``tcs_tpu`` resets its detector and
-  trains on from the poisoned state (``:157-171``); the port raises;
+  trains on from the poisoned state (``:157-171``); the port raises (a run
+  resumed from ``tcs_tpu``'s step goes back to that step);
 - ``restore_ckpt`` on a restarted run: ``tcs_tpu`` loads those initial
   weights again in place of the run's own checkpoint (``:76-91``); the port
   resumes the run, and takes ``restore_ckpt`` only when the run has none.
+
+A run of ``tcs_tpu`` moves to the port as it stands: where the run's
+directory (``checkpoint_dir/name``, the layout of
+``tcs_tpu/train/trainer.py:48-50``) holds none of the port's checkpoints but
+``tcs_tpu``'s Orbax steps, the newest step is resumed in full (weights,
+AdamW's moments, the step and the learning rate;
+``utils.checkpoint.restore_tcs_tpu``), and the loader goes on at the
+position the step implies, ``divmod(step, batches per epoch)``, as the
+port's own resume would; ``tcs_tpu`` itself would replay the data from
+epoch 1 (the first fault above), which is not copied. ``restore_ckpt`` takes
+whatever ``utils.checkpoint.load_any`` reads, ``tcs_tpu``'s Orbax
+directories included, so the KITTI raw recipe can start from a TartanAir
+run of ``tcs_tpu``. Under a process group each rank reads the checkpoint
+onto its own device.
 
 Each step appends one record to ``<checkpoint_dir>/<name>_steps.jsonl``: the
 step, the loader's epoch, batch and the global batch's sample indices (every
@@ -54,7 +70,8 @@ from tcs_tpu_torch.models import TCStereo
 from tcs_tpu_torch.ops import _kernels
 from tcs_tpu_torch.parallel import mesh
 from tcs_tpu_torch.train.train_step import SequenceBatch, make_train_step
-from tcs_tpu_torch.utils.checkpoint import CheckpointManager, load_weights
+from tcs_tpu_torch.utils import orbax_format
+from tcs_tpu_torch.utils.checkpoint import CheckpointManager, load_any, restore_tcs_tpu
 from tcs_tpu_torch.utils.debug import FailureDetector
 from tcs_tpu_torch.utils.logging_utils import MetricsLogger
 from tcs_tpu_torch.utils.profiling import StepTimer, device_memory_stats
@@ -78,26 +95,34 @@ class Trainer:
             jsonl_path=os.path.join(cfg.checkpoint_dir, f"{cfg.name}_metrics.jsonl"))
         logger.info("Parameter count: %d", sum(p.numel() for p in self.model.parameters()))
 
-    def init_state(self):
+    def init_state(self, batches_per_epoch: int):
         """(step, epoch, batch) to start from, with the model, optimiser and
-        schedule restored where the run has a checkpoint."""
+        schedule restored where the run has a checkpoint of the port's or of
+        ``tcs_tpu``'s."""
         if self.ckpt.latest_step() is not None:
             s = self._restore()
             logger.info("Resumed at step %d (epoch %d, batch %d)", s["step"], s["epoch"],
                         s["batch"])
             return s["step"], s["epoch"], s["batch"]
+        if orbax_format.step_dirs(self.ckpt.directory):
+            step = self._restore()["step"]
+            epoch, batch = divmod(step, batches_per_epoch)
+            logger.info("Resumed tcs_tpu's run at step %d (epoch %d, batch %d)", step,
+                        epoch + 1, batch)
+            return step, epoch + 1, batch
         path = self.cfg.restore_ckpt
         if path:
-            if os.path.isdir(path):
-                CheckpointManager(path).restore_params_only(self.model)
-            else:
-                load_weights(self.model, path)
+            load_any(self.model, path)
             logger.info("Restored weights from %s", path)
         return 0, 1, 0
 
     def _restore(self) -> Dict:
-        return self.ckpt.restore(self.model, self.step_fn.optimizer, self.step_fn.scheduler,
-                                 map_location=self.device)
+        """The newest checkpoint of the run, the port's, else ``tcs_tpu``'s
+        (whose record is its step alone)."""
+        opt, sched = self.step_fn.optimizer, self.step_fn.scheduler
+        if self.ckpt.latest_step() is None:
+            return {"step": restore_tcs_tpu(self.ckpt.directory, self.model, opt, sched)}
+        return self.ckpt.restore(self.model, opt, sched, map_location=self.device)
 
     def _save(self, step: int, epoch: int, batch: int) -> None:
         self.ckpt.save(step, self.model, self.step_fn.optimizer, self.step_fn.scheduler,
@@ -112,12 +137,12 @@ class Trainer:
         sequences over the ranks)."""
         cfg = self.cfg
         num_steps = max_steps or cfg.num_steps
-        step, epoch, position = self.init_state()
         dataset = dataset if dataset is not None else fetch_dataset(cfg)
         loader = SequenceLoader(dataset, batch_size=cfg.batch_size, seed=cfg.seed,
                                 shard_id=mesh.rank(), num_shards=mesh.world_size(),
                                 num_workers=cfg.num_workers,
                                 pin_memory=self.device.type == "cuda")
+        step, epoch, position = self.init_state(len(loader))
         detector = FailureDetector(patience=3)
         timer = StepTimer()
         signalled = {"flag": False}  # on this rank
@@ -166,7 +191,8 @@ class Trainer:
                             record_file.flush()
                         last = time.perf_counter()
                         if not healthy:
-                            if self.ckpt.latest_step() is None:
+                            if (self.ckpt.latest_step() is None
+                                    and not orbax_format.step_dirs(self.ckpt.directory)):
                                 raise RuntimeError(
                                     f"training diverged at step {step} (loss "
                                     f"{record['live_loss']}, grad norm {record['grad_norm']})"
