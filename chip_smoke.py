@@ -25,8 +25,11 @@ Phases, in order; any failure exits non-zero:
    with the kernels' launch counts read around it;
 5. op-level gradients: ``softsplat`` and ``lookup`` through their public
    entry points on inputs that require gradients, against autograd through
-   the plain versions (this path launches the splat's backward kernel), and
-   ``pool2x`` on a channel-last hidden state against the CPU;
+   the plain versions (this path launches the splat's backward kernel),
+   ``pool2x`` on a channel-last hidden state against the CPU, and the
+   sampler's helpers that no path calls, card against CPU: ``upflow`` (x2,
+   x4, x8), ``pool4x`` (forward, and its gradient on a channel-last view)
+   and ``median_filter`` (k 2, 3, 5);
 6. small-model gradient parity: the fp32 config at 64×96, 2 frames, 2
    iterations: loss and the gradients of a few leaves, card with kernels
    against CPU with plain versions, as the model runs and with the ReLU
@@ -50,8 +53,12 @@ Phases, in order; any failure exits non-zero:
    samples/s at 1, 4 and 8 workers, phase 7's step in this process on its
    resident batch and on the loader's batches around the SceneFlow recipe
    run through the training CLI, a SIGTERM to a CLI run's process group and
-   its resume on the same data, and the two fl4 recipes through the CLI;
-   each CLI step's launches held to its window's;
+   its resume under ``--deterministic``, held bit for bit (every step's loss
+   and gradient norm, the last weights) to an uninterrupted
+   ``--deterministic`` run, with the ms/step with and without the flag and
+   the library calls torch reports as nondeterministic in the bf16 step
+   under it, and the two fl4 recipes through the CLI; each CLI step's
+   launches held to its window's;
 10. data parallelism (``tcs_tpu_torch/parallel/mesh.py``): (a) phase 7's
    step under DDP at world size 1 over NCCL in this process, against the
    plain step from the same weights and batch, and timed beside it; (b) two
@@ -90,7 +97,8 @@ Phases, in order; any failure exits non-zero:
    ``save_params`` export) decoded on the card's host to ``tcs_tpu``'s
    digests bit for bit; (b) ``tcs_tpu``'s trained weights at the SceneFlow
    recipe (B4 320x720, 2 frames, 5 iterations) in the fp32 config with TF32
-   off and cuDNN's deterministic algorithms: 3 steps, the state written with
+   off and cuDNN's deterministic algorithms (``tcs_tpu_torch.device.
+   deterministic``, the trainer's ``--deterministic``): 3 steps, the state written with
    ``save_tcs_tpu`` and read into a fresh model, AdamW and schedule (equal bit
    for bit: every parameter, both moments, the step, the learning rate), 3
    more steps held to the 3 that the written run takes on (bit for bit, or,
@@ -803,6 +811,7 @@ def phase_op_gradients() -> dict:
     print(f"avg_pool2d of the channel-last view itself, card against CPU: max|d| = {err:.3e} "
           f"of a largest entry {grads['library', 'cpu'].abs().max().item():.3e} "
           f"(torch {torch.__version__})")
+    sampler_helpers(hidden, g, check)
     torch.cuda.synchronize()
     counts = dict(_kernels.launches)
     want_counts = {"corr_lookup": 1, "corr_lookup_bwd": 1, "splat_sum": 1, "splat_sum_bwd": 1}
@@ -810,6 +819,46 @@ def phase_op_gradients() -> dict:
     if counts != want_counts:
         fail(f"op gradient launch counts {counts} != {want_counts}")
     return counts
+
+
+def sampler_helpers(hidden, g, check) -> None:
+    """``upflow``, ``pool4x`` and ``median_filter`` on the card against the
+    CPU, and ``pool4x``'s gradient on a channel-last view (``hidden``, the
+    GRUs' layout) through ``check``; no path calls them."""
+    from tcs_tpu_torch.ops import sampler
+
+    dev = torch.device("cuda")
+    B, h, w, _ = hidden.shape
+    flow_q = torch.randn(B, h, w, 1, generator=g) * 8.0
+    # values on a grid of eighths: the median filters meet ties
+    ties = torch.round(torch.randn(B, h, w, 8, generator=g) * 8.0) / 8.0
+    cases = [(f"upflow x{f}", lambda x, f=f: sampler.upflow(x, f), flow_q) for f in (2, 4, 8)]
+    cases += [("pool4x", sampler.pool4x, hidden)]
+    cases += [(f"median_filter k{k}", lambda x, k=k: sampler.median_filter(x, k), ties)
+              for k in (2, 3, 5)]
+    for name, fn, x in cases:
+        got, want = fn(x.to(dev)).cpu(), fn(x)
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        exact = torch.equal(got, want)
+        print(f"{name} {tuple(x.shape)}, card against CPU: max|d| = {err:.3e} of "
+              f"{scale:.3e}, equal bit for bit: {exact}")
+        # a selection is exact; the others to a millionth of their largest entry
+        if got.shape != want.shape or not (exact if name.startswith("median") else
+                                           err <= 1e-6 * scale):
+            fail(f"{name} on the card differs from the CPU: {err} of {scale}")
+    cot = torch.randn(B, 128, (h - 3) // 4 + 1, (w - 3) // 4 + 1, generator=g)
+    grads = {}
+    for name, pool in (("pool4x", sampler.pool4x_nchw),
+                       ("library", lambda x: torch.nn.functional.avg_pool2d(x, 5, 4, 1))):
+        for d in (dev, "cpu"):
+            x = hidden.to(d).permute(0, 3, 1, 2).requires_grad_()
+            grads[name, str(d)] = torch.autograd.grad(pool(x), x, cot.to(d))[0].cpu()
+    check("pool4x, channel-last input", [grads["pool4x", "cuda"]], [grads["pool4x", "cpu"]])
+    # Not held to a bound: whether pool4x needs its contiguous copy.
+    err = (grads["library", "cuda"] - grads["library", "cpu"]).abs().max().item()
+    print(f"avg_pool2d(5, 4, 1) of the channel-last view itself, card against CPU: max|d| = "
+          f"{err:.3e} of a largest entry {grads['library', 'cpu'].abs().max().item():.3e} "
+          f"(torch {torch.__version__})")
 
 
 def _synthetic_batch(B, H, W, frames, seed, device, generic_pose=False):
@@ -1535,8 +1584,14 @@ def phase_training_from_files(smi: str, train_ms: float) -> dict:
 
     # SIGTERM to the CLI's process group, its workers with it, as a job
     # scheduler preempts, after step SIGTERM_AFTER; the same command resumes.
+    # Both halves and an uninterrupted run of the same steps ("det") train
+    # under --deterministic, without which cuDNN does not promise exact
+    # resume: the stopped-and-resumed run must take the same data as the
+    # uninterrupted runs, and the same losses, gradient norms and last
+    # weights bit for bit.
     resume_args = ["--recipe", "sceneflow", "--num_steps", str(RESUME_STEPS),
-                   "--validation_frequency", str(RESUME_EVERY)]
+                   "--validation_frequency", str(RESUME_EVERY), "--deterministic"]
+    det = run_train_cli(resume_args, root, "det")
     proc = train_cli(resume_args, root, "sig")
     while len(step_records(root, "sig")) < SIGTERM_AFTER and proc.poll() is None:
         time.sleep(0.05)
@@ -1556,6 +1611,7 @@ def phase_training_from_files(smi: str, train_ms: float) -> dict:
     saved = torch.load(mgr.path(k), map_location="cpu", weights_only=True)["model"]
     if not all(torch.equal(v.cpu(), saved[n]) for n, v in model.state_dict().items()):
         fail("the checkpoint's weights do not reload bit for bit")
+    del model
     both = run_train_cli(resume_args, root, "sig")
     pos = lambda r: (r["step"], r["epoch"], r["batch"], r["index"])  # noqa: E731
     want = [pos(r) for r in sf if r["step"] <= RESUME_STEPS]
@@ -1563,8 +1619,44 @@ def phase_training_from_files(smi: str, train_ms: float) -> dict:
           f"epoch, batch, indices) before the stop and after the resume "
           f"{[pos(r) for r in both]}; the uninterrupted run's {want}; weights reloaded bit "
           f"for bit")
-    if [pos(r) for r in both] != want:
+    if [pos(r) for r in both] != want or [pos(r) for r in det] != want:
         fail("the stopped and resumed run's data differs from the uninterrupted run's")
+    exact = {key: [r[key] for r in both] == [r[key] for r in det]
+             for key in ("live_loss", "grad_norm")}
+    last = [torch.load(CheckpointManager(os.path.join(root, "ck", name)).path(RESUME_STEPS),
+                       map_location="cpu", weights_only=True)["model"] for name in ("sig", "det")]
+    exact["weights"] = last[0].keys() == last[1].keys() and all(
+        torch.equal(v, last[1][n]) for n, v in last[0].items())
+    for key in ("live_loss", "grad_norm"):
+        print(f"--deterministic, stopped at step {k} and resumed, against uninterrupted: "
+              f"{key} {[r[key] for r in both]} against {[r[key] for r in det]}")
+    print(f"--deterministic resume, bit for bit against the uninterrupted run: {exact} "
+          f"(step {RESUME_STEPS}'s checkpoint for the weights)")
+    if not all(exact.values()):
+        fail(f"--deterministic: the resumed run is not the uninterrupted run bit for bit: "
+             f"{exact}")
+    det_med = summarise_steps("SceneFlow recipe from files under --deterministic", det, 4, 2,
+                              smi)
+    print(f"SceneFlow recipe from files, median over steps 3..n: {med['wall_ms']:.2f} ms/step "
+          f"without --deterministic ({len(sf)} steps), {det_med['wall_ms']:.2f} ms/step with "
+          f"it ({len(det)} steps), {det_med['wall_ms'] / med['wall_ms']:.3f}x; on {smi}")
+    add(det)
+    add(both)
+    # The bf16 step in this process under the flag: the library calls torch
+    # reports as nondeterministic on the card (none is needed for the exact
+    # resume above, which the two runs prove).
+    from tcs_tpu_torch import device as device_lib
+    from tcs_tpu_torch.train import make_train_step
+
+    model = TCStereo(cfg.model, seed=0)
+    step = make_train_step(model, cfg)
+    with device_lib.deterministic():
+        racy = nondeterministic_ops(
+            step, _synthetic_batch(TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_FRAMES, cfg.seed, "cuda"))
+    print(f"bf16 SceneFlow step under --deterministic: library calls torch reports as "
+          f"nondeterministic: {racy or 'none'}")
+    del model, step
+    torch.cuda.empty_cache()
 
     # The fl4 recipes; KITTI raw starts from the SceneFlow run's last weights.
     start = CheckpointManager(os.path.join(root, "ck", "sf"))
@@ -2193,17 +2285,6 @@ ORBAX_STEPS, ORBAX_SEED = 3, 100
 RESUME_RTOL = 1e-6  # of a loss, where the step is not deterministic on the card
 
 
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN's deterministic algorithms inside the block, put back after."""
-    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
-
-
 def nondeterministic_ops(step, batch) -> list:
     """The library calls of one training step that torch reports as having
     no deterministic implementation on the card (its warnings under
@@ -2265,6 +2346,7 @@ def phase_orbax(smi: str, eval_tree: dict = None) -> dict:
     import tempfile
 
     from tcs_tpu_torch import ModelConfig
+    from tcs_tpu_torch import device as device_lib
     from tcs_tpu_torch import evaluate as ev
     from tcs_tpu_torch.config import sceneflow_recipe
     from tcs_tpu_torch.data import fabricate
@@ -2299,7 +2381,7 @@ def phase_orbax(smi: str, eval_tree: dict = None) -> dict:
 
     procs = []  # the CLI of (c): stopped here whatever happens
     try:
-        with tf32_off(), deterministic_cudnn():
+        with tf32_off(), device_lib.deterministic():
             # the uninterrupted run writes its state after step 3 and goes on; a
             # fresh model, AdamW and schedule read that state and take the same
             # steps 4-6

@@ -27,8 +27,17 @@ sums over few pixels by percents; with the kinks pinned, what is left is the
 rounding of the arithmetic. A gradient path that is wrong on one side would
 show as a reading near 1 on that side only, pinned or not.
 
+``--variant batch-shared`` takes ``tests/test_torch_variants.py``'s
+batch-shared configuration in place of the default one: the batch context
+norm on the shared backbone, its norm parameters drawn away from ones and
+zeros as that test draws them (from the weights seed), batch 1 (so the
+norm's statistics are the two images' of one pair), and the window cut to
+frame 0, the argmax bootstrap, whose ``cnet.conv1.weight`` that test reads;
+over ``VARIANT_PAIRS``, eight seed pairs.
+
 The last line is a JSON record; the table also goes to ``runs/``.
-Usage: ``python scripts/torch_grad_parity_seeds.py [--cpu]``.
+Usage: ``python scripts/torch_grad_parity_seeds.py [--cpu] [--variant
+batch-shared]``.
 """
 
 from __future__ import annotations
@@ -53,18 +62,37 @@ from tcs_tpu_torch.utils.kinks import Kinks, widened  # noqa: E402
 
 H, W, B, FRAMES, ITERS = 64, 96, 2, 2, 2
 SEED_PAIRS = ((61, 7), (62, 17), (63, 27), (64, 37), (65, 47), (66, 57))
+# --variant batch-shared: (model kwargs, batch, frames, seed pairs)
+VARIANTS = {"default": ({}, B, FRAMES, SEED_PAIRS),
+            "batch-shared": (dict(context_norm="batch"), 1, 1,
+                             tuple((70 + k, 5 + 10 * k) for k in range(8)))}
 LEAVES = ("cnet.conv1.weight", "update_block.gru08.convzr.weight",
           "disp_completor.conv_disp_stem.0.weight", "disp_refine.mask.2.weight")
 
 
-def window_grads(model_seed, scene_seed, device, wide=False, perturb=False, replay=None):
+def draw_norms(model, seed: int) -> None:
+    """The norms' parameters away from ones and zeros, as
+    ``tests/test_torch_variants.py`` draws them."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if ".norm" in n:
+                lo, hi = (0.5, 1.5) if n.endswith("weight") else (-0.2, 0.2)
+                p.copy_(torch.empty(p.shape).uniform_(lo, hi, generator=g))
+
+
+def window_grads(model_seed, scene_seed, device, wide=False, perturb=False, replay=None,
+                 variant="default"):
+    kw, b, frames, _ = VARIANTS[variant]
     mcfg = ModelConfig(mixed_precision=False,
-                       corr_dtype="float64" if wide else "float32")
-    cfg = TrainConfig(model=mcfg, train_iters=ITERS, batch_size=B, image_size=(H, W),
-                      frame_length=FRAMES)
+                       corr_dtype="float64" if wide else "float32", **kw)
+    cfg = TrainConfig(model=mcfg, train_iters=ITERS, batch_size=b, image_size=(H, W),
+                      frame_length=frames)
     model = TCStereo(mcfg, device=device, seed=model_seed)
+    if kw:
+        draw_norms(model, model_seed)
     batch = SequenceBatch.from_numpy(
-        make_clips(B, H, W, FRAMES, scene_seed, generic_pose=True), device)
+        make_clips(b, H, W, frames, scene_seed, generic_pose=True), device)
     with contextlib.ExitStack() as stack:
         if wide:
             model.double()
@@ -77,14 +105,16 @@ def window_grads(model_seed, scene_seed, device, wide=False, perturb=False, repl
                     sign = torch.randint(0, 2, img.shape, generator=gen) * 2.0 - 1.0
                     img.mul_(1.0 + sign * 2.0 ** -24)
             stack.enter_context(widened())
-        kinks = stack.enter_context(Kinks(replay))
+        kinks = stack.enter_context(Kinks(replay, l1=True))
         metrics = accumulate_window_grads(model, cfg, batch)
     grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
     return metrics["live_loss"].item(), grads, kinks
 
 
 def main() -> None:
-    on_card = "--cpu" not in sys.argv[1:]
+    args = sys.argv[1:]
+    variant = args[args.index("--variant") + 1] if "--variant" in args else "default"
+    on_card = "--cpu" not in args
     if on_card and not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU (or --cpu for the CPU runs alone)")
     card = "cpu only"
@@ -94,13 +124,13 @@ def main() -> None:
                               check=True).stdout.strip().splitlines()[0]
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    lines, records = [f"card: {card}"], []
-    for ms, ss in SEED_PAIRS:
-        l64, g64, k64 = window_grads(ms, ss, "cpu", wide=True)
-        runs = {"f64p": window_grads(ms, ss, "cpu", wide=True, perturb=True)}
+    lines, records = [f"card: {card}; configuration: {variant}"], []
+    for ms, ss in VARIANTS[variant][3]:
+        l64, g64, k64 = window_grads(ms, ss, "cpu", wide=True, variant=variant)
+        runs = {"f64p": window_grads(ms, ss, "cpu", wide=True, perturb=True, variant=variant)}
         for name, dev in (("cpu32", "cpu"), ("card32", "cuda"))[:1 + on_card]:
-            runs[name] = window_grads(ms, ss, dev)
-            runs[name + "@f64"] = window_grads(ms, ss, dev, replay=k64.sides)
+            runs[name] = window_grads(ms, ss, dev, variant=variant)
+            runs[name + "@f64"] = window_grads(ms, ss, dev, replay=k64.sides, variant=variant)
         units = sum(m.numel() for m in k64.sides)
         gmax = max(g.abs().max().item() for g in g64.values())
         live = [k for k, g in g64.items() if g.abs().max().item() > 1e-5 * gmax]
@@ -133,10 +163,11 @@ def main() -> None:
             f"{t} {v:.2e} ({k})" for t, (k, v) in rec["worst"].items()))
         records.append(rec)
     os.makedirs("runs", exist_ok=True)
-    with open("runs/torch_grad_parity_seeds.txt", "w") as f:
+    suffix = "" if variant == "default" else f"_{variant}"
+    with open(f"runs/torch_grad_parity_seeds{suffix}.txt", "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines))
-    print(json.dumps({"card": card, "pairs": records}))
+    print(json.dumps({"card": card, "variant": variant, "pairs": records}))
 
 
 if __name__ == "__main__":

@@ -16,9 +16,13 @@ one formulation). Data parallelism runs one process per card
 torch.distributed.run`` gives its processes when the flags are absent;
 ``--batch_size`` is per process, as in ``tcs_tpu`` and the reference. Added:
 ``--validation_frequency`` (the checkpoint cadence, which ``TrainConfig``
-has and ``scripts/train.py`` cannot set) and ``--device`` ('cuda', the
-default, which is each process's own card, or 'cpu'). A run that a SIGTERM
-stops checkpoints and exits 0; the same command resumes it.
+has and ``scripts/train.py`` cannot set), ``--device`` ('cuda', the
+default, which is each process's own card, or 'cpu') and ``--deterministic``
+(cuDNN's deterministic algorithms, ``device.deterministic()``; a trainer
+argument, not a ``TrainConfig`` field, so the config stays ``tcs_tpu``'s).
+A run that a SIGTERM stops checkpoints and exits 0; the same command resumes
+it. On the card the resumed run is sure to retrace the uninterrupted one,
+step for step, only where both have ``--deterministic``.
 """
 
 from __future__ import annotations
@@ -94,6 +98,12 @@ def parse_args(argv=None):
                    help="run the recipe's validation at each checkpoint")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default: this process's card) or 'cpu'")
+    p.add_argument("--deterministic", action="store_true",
+                   help="cuDNN's deterministic algorithms: on the card exact resume "
+                        "is guaranteed only with this flag on the stopped run and on "
+                        "its resume (the fp32 step is not reproducible without it); "
+                        "its cost is in PERF.md; the CPU's step is deterministic "
+                        "without it")
     # data parallelism, one process per card
     p.add_argument("--coordinator", default=None, help="host:port of rank 0's rendezvous")
     p.add_argument("--num_processes", type=int, default=None)
@@ -165,7 +175,8 @@ def main(argv=None):
 
     mesh.initialize_distributed(*process_group_args(args), device=args.device)
     try:
-        trainer = Trainer(cfg, device=args.device, use_wandb=args.wandb)
+        trainer = Trainer(cfg, device=args.device, use_wandb=args.wandb,
+                          deterministic=args.deterministic)
         validate_fn = None
         if args.validate:
             kw = dict(iters=cfg.valid_iters, root=cfg.data_root, device=trainer.device,

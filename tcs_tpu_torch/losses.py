@@ -45,6 +45,12 @@ from tcs_tpu_torch.ops.sampler import (
 Metrics = Dict[str, torch.Tensor]
 
 
+def l1(r: torch.Tensor) -> torch.Tensor:
+    """|r| of every L1 term; ``utils.kinks.Kinks(l1=True)`` stands in for it
+    to pin the kinks at r = 0."""
+    return r.abs()
+
+
 def _denominator(m: torch.Tensor, count: Optional[torch.Tensor]) -> torch.Tensor:
     """The mask's count, this batch's or the given one, in the mask's dtype
     (a count is an integer: its sum is exact in any order), at least 1."""
@@ -89,10 +95,9 @@ def sequence_loss(flow_mono, flow_init, flow_preds, flow_gt, valid,
     """
     flows_up, flows_refine_up = flow_preds
     v = valid.to(torch.float32)
-    loss = 0.1 * masked_mean((flow_init - flow_gt).abs(), v, count)
-    loss = loss + 0.1 * masked_mean((flow_mono - flow_gt).abs(), v, count)
-    per_iter = (flows_up - flow_gt[None]).abs() \
-        + 1.2 * (flows_refine_up - flow_gt[None]).abs()
+    loss = 0.1 * masked_mean(l1(flow_init - flow_gt), v, count)
+    loss = loss + 0.1 * masked_mean(l1(flow_mono - flow_gt), v, count)
+    per_iter = l1(flows_up - flow_gt[None]) + 1.2 * l1(flows_refine_up - flow_gt[None])
     loss = loss + torch.sum(weights * _per_iteration_mean(per_iter, v, count))
 
     with torch.no_grad():
@@ -237,9 +242,9 @@ def disp_normal_loss(flow_q_preds, disp_norm_gt, valid, weights,
 
     def one_term(flow_q):
         normal, _ = disp2disp_normal_xy(-flow_q)
-        l1 = torch.mean((normal - gt[None]).abs(), dim=-1, keepdim=True)
+        l1_term = torch.mean(l1(normal - gt[None]), dim=-1, keepdim=True)
         cos = torch.sum(normal * gt[None], dim=-1, keepdim=True)
-        return _per_iteration_mean(0.5 * l1 + 0.5 * (1.0 - cos), v, count)
+        return _per_iteration_mean(0.5 * l1_term + 0.5 * (1.0 - cos), v, count)
 
     loss = torch.sum(weights * (one_term(flow_q_seq) + 1.2 * one_term(flow_refine_seq)))
     return loss, {"norm_loss": loss.detach()}
@@ -266,6 +271,6 @@ def disp_grad_loss(disp_grad_preds, disp_grad_gt, valid, weights,
     """
     gt, v = targets if targets is not None else grad_targets(
         disp_grad_gt, valid, scale, dense_gt)
-    i_loss = torch.mean((disp_grad_preds - gt[None]).abs(), dim=-1, keepdim=True)
+    i_loss = torch.mean(l1(disp_grad_preds - gt[None]), dim=-1, keepdim=True)
     loss = torch.sum(weights * _per_iteration_mean(i_loss, v, count))
     return loss, {"grad_loss": loss.detach()}

@@ -3,7 +3,14 @@
 Mixed precision follows the JAX package with explicit casts, not autocast:
 parameters stay fp32 and every convolution casts its input, weight and bias
 to the module's ``compute_dtype`` (bf16 under ``mixed_precision``), as a Flax
-``nn.Conv(dtype=...)`` does. Every norm takes its statistics in fp32.
+``nn.Conv(dtype=...)`` does. In bf16 the bias is added to the convolution's
+output rounded to bf16, as Flax adds it (a library convolution that adds the
+bias inside its fp32 sum rounds once: on the CPU that moved 30 % of a bf16
+convolution's outputs by an ulp from ``tcs_tpu``'s;
+``scripts/parity_bf16_frame0.py``); in fp32 the two orders part by an
+fp32 ulp, and the library adds it. Two elementwise functions follow
+``tcs_tpu``'s bf16 arithmetic too: :func:`sigmoid` and :func:`leaky_relu`.
+Every norm takes its statistics in fp32.
 
 Module and parameter names follow the reference torch model, so its state
 dicts load with ``strict=True``.
@@ -26,9 +33,10 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                        self.padding, self.dilation, self.groups)
+        bias, late = _bias_terms(self.bias, dt)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding,
+                     self.dilation, self.groups)
+        return y if late is None else y + late
 
 
 class ConvTranspose(nn.ConvTranspose2d):
@@ -38,10 +46,51 @@ class ConvTranspose(nn.ConvTranspose2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                                  self.padding, self.output_padding, self.groups,
-                                  self.dilation)
+        bias, late = _bias_terms(self.bias, dt)
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                               self.padding, self.output_padding, self.groups,
+                               self.dilation)
+        return y if late is None else y + late
+
+
+def _bias_terms(bias, dt: torch.dtype):
+    """(bias for the library's convolution, bias to add to its output): in
+    bf16 the bias is added after the convolution's rounding."""
+    if bias is None:
+        return None, None
+    if dt == torch.bfloat16:
+        return None, bias.to(dt).view(1, -1, 1, 1)
+    return bias.to(dt), None
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """σ(x) as ``tcs_tpu`` evaluates it: ``jax.nn.sigmoid`` lowers to
+    1 / (1 + exp(−x)) in the input's dtype, so in bf16 the exponential and
+    the sum are each rounded to bf16 before the quotient; ``torch.sigmoid``
+    rounds once, and that moved 34 % of bf16 outputs by an ulp. fp32 and
+    wider take ``torch.sigmoid``: there the two part by an fp32 ulp."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+# tcs_tpu's leaky ReLU multiplies by a weakly typed 0.01, which in bf16 is
+# the bf16 number nearest it; F.leaky_relu would multiply by 0.01 in fp32.
+_LEAKY_SLOPE = {torch.bfloat16: torch.tensor(0.01, dtype=torch.bfloat16).item()}
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.01) with the slope rounded to ``x``'s dtype, as in
+    ``tcs_tpu`` (in bf16 the slope is 0.010009765625; 9 % of bf16 outputs
+    moved by an ulp with 0.01)."""
+    return F.leaky_relu(x, _LEAKY_SLOPE.get(x.dtype, 0.01))
+
+
+class LeakyReLU(nn.Module):
+    """:func:`leaky_relu` as a module, for ``nn.Sequential`` ladders."""
+
+    def forward(self, x):
+        return leaky_relu(x)
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
@@ -191,7 +240,7 @@ class BasicConvIN(nn.Module):
         x = self.conv(x)
         if self.use_in:
             x = instance_norm(x)
-        return F.leaky_relu(x, 0.01)
+        return leaky_relu(x)
 
 
 class Conv2xIN(nn.Module):

@@ -20,7 +20,9 @@ from tcs_tpu_torch.models.layers import (
     Conv,
     Conv2xIN,
     InstanceNorm,
+    LeakyReLU,
     conv_seq,
+    sigmoid,
 )
 from tcs_tpu_torch.ops.sampler import pool2x_nchw, resize_bilinear_nchw
 from tcs_tpu_torch.ops.sampler import to_nchw as _c
@@ -58,7 +60,7 @@ class _GatedFuse(nn.Module):
 
     def fuse(self, h, x):
         z, r = torch.chunk(self.convzr(torch.cat([h, x], dim=1)), 2, dim=1)
-        z, r = torch.sigmoid(z), torch.sigmoid(r)
+        z, r = sigmoid(z), sigmoid(r)
         q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
         return z * h + (1 - z) * q
 
@@ -78,8 +80,7 @@ class HiddenstateUpdater(_GatedFuse):
 
     def __init__(self, hidden_dim: int):
         super().__init__(hidden_dim, 64)
-        self.convs = nn.Sequential(Conv(1, 64, 1, 1, 0), nn.LeakyReLU(0.01),
-                                   Conv(64, 64, 1, 1, 0))
+        self.convs = nn.Sequential(Conv(1, 64, 1, 1, 0), LeakyReLU(), Conv(64, 64, 1, 1, 0))
 
     def forward(self, h, delta_disp):
         """h: (B,C,h,w); delta_disp: (B,h,w,1) NHWC."""
@@ -98,8 +99,8 @@ class ConvGRU(nn.Module):
     def forward(self, h, cz, cr, cq, *x_list):
         x = torch.cat(x_list, dim=1)
         z, r = torch.chunk(self.convzr(torch.cat([h, x], dim=1)), 2, dim=1)
-        z = torch.sigmoid(z + cz)
-        r = torch.sigmoid(r + cr)
+        z = sigmoid(z + cz)
+        r = sigmoid(r + cr)
         q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)) + cq)
         return (1 - z) * h + z * q
 

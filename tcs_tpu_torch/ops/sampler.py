@@ -11,8 +11,11 @@ Semantics (as in the JAX package and the reference):
   driven by pixel coordinates: a tap counts only while its index is in range.
 - ``resize_bilinear`` matches ``F.interpolate(mode='bilinear', align_corners=True)``.
 - ``resize_nearest`` takes source index ``floor(dst * in / out)``.
-- ``pool2x`` is ``avg_pool2d(3, stride 2, padding 1, count_include_pad)``.
-- ``median_pool`` takes the lower median, as ``torch.median`` does.
+- ``upflow`` is ``factor × resize_bilinear`` to ``factor`` times the size.
+- ``pool2x`` and ``pool4x`` are ``avg_pool2d(count_include_pad)`` with
+  (window, stride, padding) (3, 2, 1) and (5, 4, 1).
+- ``median_pool`` and ``median_filter`` take the lower median, as
+  ``torch.median`` does.
 """
 
 from __future__ import annotations
@@ -106,6 +109,14 @@ def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
     return to_nhwc(resize_bilinear_nchw(to_nchw(x), out_hw))
 
 
+def upflow(flow: torch.Tensor, factor: int) -> torch.Tensor:
+    """``upflow8`` for any factor (reference ``core/utils/utils.py:106``):
+    (B, H, W, C) resized bilinearly, align corners, to (factor·H, factor·W)
+    and its values multiplied by ``factor``."""
+    H, W = flow.shape[1:3]
+    return factor * resize_bilinear(flow, (factor * H, factor * W))
+
+
 def resize_nearest_nchw(x: torch.Tensor, out_hw) -> torch.Tensor:
     H, W = x.shape[2:4]
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
@@ -138,6 +149,17 @@ def pool2x(x: torch.Tensor) -> torch.Tensor:
     return to_nhwc(pool2x_nchw(to_nchw(x)))
 
 
+def pool4x_nchw(x: torch.Tensor) -> torch.Tensor:
+    """avg_pool2d(5, stride 4, padding 1) of (B, C, H, W), through an
+    NCHW-contiguous copy for the reason :func:`pool2x_nchw` gives."""
+    return F.avg_pool2d(x.contiguous(), 5, stride=4, padding=1, count_include_pad=True)
+
+
+def pool4x(x: torch.Tensor) -> torch.Tensor:
+    """``core/update.py:118``: avg_pool2d(x, 5, stride=4, padding=1) on NHWC."""
+    return to_nhwc(pool4x_nchw(to_nchw(x)))
+
+
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.Tensor:
     """``F.max_pool2d`` on NHWC (padding counts as −inf)."""
     return to_nhwc(F.max_pool2d(to_nchw(x), window, stride, padding))
@@ -152,6 +174,24 @@ def median_pool(x: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"median_pool: {H}x{W} is not a multiple of {k}")
     win = x.reshape(B, H // k, k, W // k, k, C).permute(0, 1, 3, 5, 2, 4)
     return win.reshape(B, H // k, W // k, C, k * k).median(dim=-1).values
+
+
+def median_filter(x: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """Overlapping k×k lower-median filter of (B, H, W, C), stride 1: the
+    element at sorted index (k·k − 1)//2 of each window, reflect padding
+    (k//2 before, k − 1 − k//2 after, so an even ``k`` pads one more row and
+    column before than after); the general ``MedianPool2d(k, 1, same=True)``
+    (reference ``core/utils/utils.py:121``).
+
+    A window that holds a NaN gives NaN, as in ``tcs_tpu``: ``torch.median``
+    returns NaN for it, and ``tcs_tpu``'s min/max network passes a NaN on to
+    every wire it meets, and each output's wires meet every input's.
+    """
+    B, H, W, C = x.shape
+    p = k // 2
+    xp = F.pad(to_nchw(x), (p, k - 1 - p, p, k - 1 - p), mode="reflect")
+    taps = xp.unfold(2, k, 1).unfold(3, k, 1)  # (B, C, H, W, k, k)
+    return to_nhwc(taps.reshape(B, C, H, W, k * k).median(dim=-1).values)
 
 
 def convex_upsample_nchw(field: torch.Tensor, mask_logits: torch.Tensor,

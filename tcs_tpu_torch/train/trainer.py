@@ -44,6 +44,12 @@ directories included, so the KITTI raw recipe can start from a TartanAir
 run of ``tcs_tpu``. Under a process group each rank reads the checkpoint
 onto its own device.
 
+With ``deterministic`` the training runs under
+``device.deterministic()``: on the card, cuDNN's deterministic convolution
+algorithms, without which a resumed run need not retrace the uninterrupted
+one (the fp32 config's step parts in the first loss between two runs); the
+CPU's step is deterministic without it.
+
 Each step appends one record to ``<checkpoint_dir>/<name>_steps.jsonl``: the
 step, the loader's epoch, batch and the global batch's sample indices (every
 rank's, in rank order), the host time blocked
@@ -63,6 +69,7 @@ import signal
 import time
 from typing import Callable, Dict, Optional
 
+from tcs_tpu_torch import device as device_lib
 from tcs_tpu_torch.config import TrainConfig
 from tcs_tpu_torch.data.datasets import fetch_dataset
 from tcs_tpu_torch.data.loader import SequenceLoader
@@ -80,9 +87,13 @@ logger = logging.getLogger(__name__)
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, device=None, use_wandb: bool = False):
-        """``device``: 'cuda' (the default: this rank's card) or 'cpu'."""
+    def __init__(self, cfg: TrainConfig, device=None, use_wandb: bool = False,
+                 deterministic: bool = False):
+        """``device``: 'cuda' (the default: this rank's card) or 'cpu';
+        ``deterministic``: train under ``device.deterministic()``, which
+        exact resume on the card needs."""
         self.cfg = cfg
+        self.deterministic = deterministic
         self.device = mesh.local_device("cuda" if device is None else device)
         # every rank draws the same weights: DDP's broadcast changes nothing
         self.model = TCStereo(cfg.model, device=self.device, seed=cfg.seed)
@@ -135,6 +146,10 @@ class Trainer:
         stopped it. ``validate_fn(model, model_cfg)`` returns a metric dict;
         under a process group every rank calls it (the evaluators shard their
         sequences over the ranks)."""
+        with device_lib.deterministic() if self.deterministic else contextlib.nullcontext():
+            return self._train(max_steps, dataset, validate_fn)
+
+    def _train(self, max_steps, dataset, validate_fn) -> Dict:
         cfg = self.cfg
         num_steps = max_steps or cfg.num_steps
         dataset = dataset if dataset is not None else fetch_dataset(cfg)

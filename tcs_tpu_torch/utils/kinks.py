@@ -12,6 +12,11 @@ the side the other run took, what is left is the rounding of the arithmetic,
 and a gradient check can be held to a tight bound. The witness to hold an
 fp32 run against is a float64 run of the same code (:func:`widened`) with the
 fp32 run's kinks pinned to its sides.
+
+The losses' L1 terms have a kink of the same kind at a residual of zero
+(``losses.l1``): a residual within rounding of zero sends its gradient with
+one sign in one run and with the other in the next. ``Kinks(l1=True)`` pins
+those too.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import torch.nn.functional as F
 
 
 class Kinks:
-    """Context manager that stands in for ``F.relu`` and ``F.leaky_relu``.
+    """Context manager that stands in for ``F.relu`` and ``F.leaky_relu``,
+    and with ``l1`` for ``losses.l1`` (|r| as r·(±1)).
 
     It records on which side of its kink every unit falls, call by call
     (``sides``, boolean CPU tensors), and, given another run's record as
@@ -31,8 +37,8 @@ class Kinks:
     gradients without ``replay`` are those of the functions it stands in for.
     """
 
-    def __init__(self, replay=None):
-        self.sides, self.replay = [], replay
+    def __init__(self, replay=None, l1: bool = False):
+        self.sides, self.replay, self.l1 = [], replay, l1
 
     def _apply(self, x, slope):
         side = x > 0
@@ -42,14 +48,20 @@ class Kinks:
         return x * torch.where(side, 1.0, slope).to(x.dtype)
 
     def __enter__(self):
-        self._saved = F.relu, F.leaky_relu
+        from tcs_tpu_torch import losses
+
+        self._saved = F.relu, F.leaky_relu, losses.l1
         F.relu = lambda x, inplace=False: self._apply(x, 0.0)
         F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: self._apply(
             x, negative_slope)
+        if self.l1:
+            losses.l1 = lambda r: self._apply(r, -1.0)
         return self
 
     def __exit__(self, *exc):
-        F.relu, F.leaky_relu = self._saved
+        from tcs_tpu_torch import losses
+
+        F.relu, F.leaky_relu, losses.l1 = self._saved
 
     def crossed(self, other) -> int:
         """Units that fall on another side than in ``other``, a ``sides`` record."""

@@ -6,16 +6,21 @@ tolerance is atol 1e-5 unless a test states another.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
+from flax import linen as flax_nn
+
 from tcs_tpu import geometry as jgeo
+from tcs_tpu.models import layers as jlayers
 from tcs_tpu.ops import corr as jcorr
 from tcs_tpu.ops import sampler as jsam
 from tcs_tpu.ops import splat as jsplat
 from tcs_tpu.ops.pallas.corr_kernel import lookup_pallas
 from tcs_tpu_torch import geometry as tgeo
+from tcs_tpu_torch.models import layers as tlayers
 from tcs_tpu_torch.ops import _kernels
 from tcs_tpu_torch.ops import corr as tcorr
 from tcs_tpu_torch.ops import sampler as tsam
@@ -90,6 +95,98 @@ def test_bilinear_sampler(rng):
 def test_pool2x(rng):
     t, j = _pair(rng.normal(size=(2, 7, 10, 4)).astype(np.float32))
     _close(tsam.pool2x(t), jsam.pool2x(j))
+
+
+@pytest.mark.parametrize("factor", [2, 4, 8])
+def test_upflow(rng, factor):
+    """Exact on the CPU (the same positions, products and sums); the bound
+    is for the values, up to 8 × 3 px. An odd grid, so no size is a
+    multiple of another."""
+    hw = (5, 7)
+    t, j = _pair((rng.normal(size=(2, *hw, 2)) * 3.0).astype(np.float32))
+    got = tsam.upflow(t, factor)
+    assert got.shape == (2, factor * hw[0], factor * hw[1], 2)
+    _close(got, jsam.upflow(j, factor), atol=ATOL, rtol=1e-6)
+
+
+# Sizes that are not multiples of the stride: 4·k + 1..3 and odd.
+POOL4X_SIZES = [(13, 21), (16, 24), (9, 10), (7, 15)]
+
+
+@pytest.mark.parametrize("hw", POOL4X_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_pool4x(rng, hw):
+    """The forward against tcs_tpu's depthwise convolution, and the gradient
+    of a channel-last view (the hidden states' layout) against tcs_tpu's."""
+    x = rng.normal(size=(2, *hw, 4)).astype(np.float32)
+    t, j = _pair(x)
+    out = tsam.pool4x(t)
+    assert out.shape == (2, (hw[0] - 3) // 4 + 1, (hw[1] - 3) // 4 + 1, 4)
+    _close(out, jsam.pool4x(j))
+    cot = rng.normal(size=tuple(out.shape)).astype(np.float32)
+    # an NCHW view of channel-last memory, as pool4x_nchw receives it
+    leaf = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    got = torch.autograd.grad(tsam.pool4x_nchw(leaf), leaf,
+                              torch.from_numpy(cot).permute(0, 3, 1, 2))[0]
+    want = jax.grad(lambda a: jnp.sum(jsam.pool4x(a) * cot))(j)
+    _close(got.permute(0, 2, 3, 1), want)
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+@pytest.mark.parametrize("hw", [(7, 10), (8, 12), (11, 6)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_median_filter(rng, k, hw):
+    """A selection, so equal bit for bit, with ties (values on a grid of
+    eighths) and an even ``k``'s one-sided reflect padding."""
+    t, j = _pair((np.round(rng.normal(size=(2, *hw, 3)) * 8) / 8).astype(np.float32))
+    got = tsam.median_filter(t, k)
+    assert got.shape == t.shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jsam.median_filter(j, k)))
+
+
+def _bf16_pair(x):
+    """The same bf16 values on both sides."""
+    j = jnp.asarray(x).astype(jnp.bfloat16)
+    return torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16), j
+
+
+def test_bf16_conv_adds_its_bias_as_tcs_tpu(rng):
+    """tcs_tpu's bf16 ``Conv`` (Flax) rounds the convolution to bf16 and then
+    adds the bias in bf16; the port's ``Conv`` does the same. Measured here:
+    2 of 24,576 outputs an ulp apart (the fp32 sums' order); adding the bias
+    inside the library's sum, as the port did, moved 30 %."""
+    x = rng.normal(size=(1, 16, 24, 64)).astype(np.float32)
+    conv = tlayers.Conv(64, 64, 3, 1, 1)
+    with torch.no_grad():
+        conv.bias.uniform_(-0.5, 0.5)
+    conv.compute_dtype = torch.bfloat16
+    t, j = _bf16_pair(x)
+    got = conv(t.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float().detach().numpy()
+    params = {"params": {"Conv_0": {
+        "kernel": jnp.asarray(conv.weight.detach().permute(2, 3, 1, 0).numpy()),
+        "bias": jnp.asarray(conv.bias.detach().numpy())}}}
+    want = jlayers.Conv(64, 3, 1, 1, dtype=jnp.bfloat16).apply(params, j)
+    assert want.dtype == jnp.bfloat16
+    differ = np.mean(got != np.asarray(want.astype(jnp.float32)))
+    print(f"bf16 conv: {differ:.5f} of the outputs differ from tcs_tpu's")
+    assert differ <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["sigmoid", "leaky_relu"])
+def test_bf16_elementwise_is_tcs_tpus(rng, name):
+    """In bf16 ``jax.nn.sigmoid`` is 1 / (1 + exp(−x)) rounded after each
+    operation, and tcs_tpu's leaky ReLU multiplies by 0.01 rounded to bf16;
+    the port's :func:`sigmoid` and :func:`leaky_relu` give the same bits
+    (``torch.sigmoid`` and ``F.leaky_relu(x, 0.01)`` moved 34 % and 9 % of
+    the outputs by an ulp). In fp32 they are the library's functions."""
+    t, j = _bf16_pair((rng.normal(size=(1 << 14,)) * 4).astype(np.float32))
+    port, ref = {"sigmoid": (tlayers.sigmoid, flax_nn.sigmoid),
+                 "leaky_relu": (tlayers.leaky_relu, jlayers.leaky_relu)}[name]
+    got = port(t)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref(j).astype(jnp.float32)))
+    x32 = t.float()
+    torch.testing.assert_close(port(x32), {"sigmoid": torch.sigmoid,
+                                           "leaky_relu": torch.nn.functional.leaky_relu}[name](x32),
+                               rtol=0, atol=0)
 
 
 def test_convex_upsample(rng):

@@ -29,6 +29,34 @@ coverage mask ``norm != 0`` takes that cell. The completion then reads it as
 a sparse seed: 0.71 px apart at 1 iteration, 0.081 px at 5 (two intra-op
 threads; 1.02 px at 1 iteration with four). tcs_tpu has the same edge: it
 moves as far when given the port's frame-0 state. ROADMAP Queue 3 logs it.
+
+The bf16 config's frame 0, stage by stage (``python
+scripts/parity_bf16_frame0.py``, clip 2, 2 threads; mean |Δ| bf16 /
+fp32 config): the context encoder's net0 3.2e-3 / 7.0e-7 (64 % of its
+entries an ulp or more apart), the matching features 2.9e-3 / 5.7e-7, the
+cost volume 5.2e-4 / 1.2e-7, the argmax disparity 5.2e-3 / 0 (2 of 384
+cells a pixel apart), the completed disparity 4.8e-3 / 1.6e-7 and the flow
+after 5 iterations 4.1e-3 / 4.6e-7 px. Each stage alone, the port's module
+on tcs_tpu's input: the convolutions put 0 to 8e-4 of their outputs an ulp
+apart (the order of the fp32 sums), the hidden-state fusion none; the
+matching head 51 % and the disparity completion's hidden states 7 to 26 %,
+because tcs_tpu's compiled program feeds each instance norm the
+convolution's fp32 result (XLA drops the bf16 rounding that its source asks
+for: the norm of a jitted bf16 convolution equals the norm of its fp32
+result on every entry; the port keeps the rounding, and would need fp32
+convolutions there to copy the compiler). With tcs_tpu's
+encoder outputs put in the port, frame 0 is 2.2e-3 px from tcs_tpu's. The
+jump is the bf16 rounding of the encoders, amplified: tcs_tpu itself moves
+7.1e-3 px when its two-image trunk is packed along channels (its test mode)
+or stacked along the batch (its training), one function summed in two
+orders. Three roundings of tcs_tpu's that the port lacked are copied
+(``tests/test_torch_ops.py``): the bias added after the convolution's bf16
+rounding (30 % of a convolution's outputs an ulp apart without it), the
+sigmoid as bf16 1 / (1 + exp(−x)) (34 %), the leaky ReLU's slope in bf16
+(9 %). Frame 0's mean |Δflow| over the four clips went from 3.20e-3,
+4.05e-3, 7.45e-3, 4.53e-3 to 1.46e-3, 4.91e-3, 4.09e-3, 1.86e-3 px, and
+frame 1's from 1.71e-3, 4.45e-3, 4.70e-3, 2.43e-3 to 1.19e-3, 2.86e-3,
+2.11e-3, 1.07e-3 px.
 """
 
 import os
@@ -59,6 +87,9 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "convergence_param
 H, W, CLIPS = 64, 96, 4
 FLOW_TOL = 1e-3  # px, fp32 config
 BF16_MEAN_TOL = 5e-3  # px, mean |Δflow| of a clip's last frame, bf16 config
+# px, frame 0's mean |Δflow|, bf16 config: the largest measured, 4.91e-3 on
+# clip 1, with a margin of a fifth (module docstring)
+BF16_FRAME0_MEAN_TOL = 6e-3
 BF16_EPE_TOL = 5e-3  # px, EPE against the ground truth, bf16 config
 CLAIM_TOL = 2e-2  # px, carried and reset means against tcs_tpu's
 CONFIGS = {"fp32": dict(mixed_precision=False, corr_dtype="float32"), "bf16": {}}
@@ -231,7 +262,8 @@ def test_bf16_config_matches_tcs_tpus_bf16(runs, ci):
     """The default config (bf16 conv stacks and pyramid) on both sides:
     rounding in bf16 differs between the two packages' convolutions, so the
     flows are held by their mean, and by their EPE against the ground truth
-    on both frames."""
+    on both frames; frame 0's mean is held at what the stage-by-stage
+    comparison explains (module docstring)."""
     jflows, tflows, _ = runs.streams("bf16", 5, ci)
     s = runs.clips[ci]
     for t in range(2):
@@ -241,6 +273,8 @@ def test_bf16_config_matches_tcs_tpus_bf16(runs, ci):
         print(f"clip {ci} frame {t}: |dflow| max {err.max():.3e} mean {err.mean():.3e} px; "
               f"EPE tcs_tpu {epe_j:.5f} port {epe_t:.5f} px")
         assert abs(epe_j - epe_t) <= BF16_EPE_TOL
+        if t == 0:
+            assert err.mean() <= BF16_FRAME0_MEAN_TOL
     assert err.mean() <= BF16_MEAN_TOL
 
 

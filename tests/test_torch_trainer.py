@@ -15,6 +15,10 @@ config) over trees fabricated from a seed.
   ``tools/convert_torch_ckpt.py`` and give its forward within
   ``test_torch_model.py``'s 5e-2 px (measured 8.9e-6 px); this is the one
   JAX program the file compiles.
+- ``--deterministic`` (the CLI's and the trainer's; not a ``TrainConfig``
+  field, so the config stays ``tcs_tpu``'s field for field) trains under
+  ``device.deterministic()``, which sets cuDNN's two switches and puts them
+  back.
 - ``cli/train.py`` maps every flag as ``scripts/train.py``'s ``build_config``
   does, without the TPU flags, and trains in a subprocess with worker
   processes and validation; a SIGTERM to the subprocess's whole process
@@ -45,6 +49,7 @@ from tcs_tpu.config import ModelConfig as JaxModelConfig
 from tcs_tpu.models import CameraParams as JaxCam
 from tcs_tpu.models import TCStereo as JaxTCStereo
 from tcs_tpu.models import TemporalState as JaxState
+from tcs_tpu_torch import device as device_lib
 from tcs_tpu_torch.cli import train as cli
 from tcs_tpu_torch.config import ModelConfig, TrainConfig
 from tcs_tpu_torch.data import fabricate, kitti_raw_pose
@@ -268,6 +273,77 @@ def test_cli_flags_land_as_in_scripts_train(argv):
             assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
     for f in dataclasses.fields(ours.model):
         assert getattr(ours.model, f.name) == getattr(theirs.model, f.name), f.name
+
+
+@pytest.mark.parametrize("argv", [FLAGS, ["--recipe", "sceneflow"]], ids=["every_flag",
+                                                                          "no_flags"])
+def test_deterministic_flag_leaves_the_config_tcs_tpus(argv):
+    """``--deterministic`` goes to the trainer: the config built with it is
+    the one ``scripts/train.py`` builds without it, field for field."""
+    ref = _reference_cli()
+    ours = cli.build_config(cli.parse_args(argv + ["--deterministic"]))
+    theirs = ref.build_config(ref.parse_args(argv))
+    # the port's fields are tcs_tpu's less its TPU formulation knobs
+    assert {f.name for f in dataclasses.fields(ours)} <= {
+        f.name for f in dataclasses.fields(theirs)}
+    for f in dataclasses.fields(ours):
+        if f.name != "model":
+            assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    for f in dataclasses.fields(ours.model):
+        assert getattr(ours.model, f.name) == getattr(theirs.model, f.name), f.name
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_deterministic_flag_lands_on_the_trainer(monkeypatch, flag):
+    """The CLI hands ``--deterministic`` to the ``Trainer`` as it hands
+    ``--device`` and ``--wandb``; every process of a group parses the same
+    argument list."""
+    import tcs_tpu_torch.train.trainer as trainer_mod
+
+    seen = {}
+
+    class Recorder:
+        def __init__(self, cfg, **kw):
+            seen.update(kw, cfg=cfg)
+            self.device, self.logger = torch.device("cpu"), None
+
+        def train(self, validate_fn=None):
+            return {"step": 0}
+
+    monkeypatch.setattr(trainer_mod, "Trainer", Recorder)
+    cli.main(["--recipe", "sceneflow", "--device", "cpu"] + (["--deterministic"] if flag else []))
+    assert seen["deterministic"] is flag and seen["device"] == "cpu"
+    assert not hasattr(seen["cfg"], "deterministic")
+
+
+@pytest.mark.parametrize("before", [(False, False), (False, True), (True, True)])
+def test_deterministic_sets_cudnn_and_puts_it_back(before):
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    try:
+        cudnn.deterministic, cudnn.benchmark = before
+        with device_lib.deterministic():
+            assert (cudnn.deterministic, cudnn.benchmark) == (True, False)
+        assert (cudnn.deterministic, cudnn.benchmark) == before
+        with pytest.raises(KeyError):
+            with device_lib.deterministic():
+                raise KeyError("inside")
+        assert (cudnn.deterministic, cudnn.benchmark) == before
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_trainer_trains_under_deterministic(tree, tmp_path, monkeypatch, flag):
+    cudnn = torch.backends.cudnn
+    trainer = Trainer(_cfg(tree, tmp_path), device="cpu", deterministic=flag)
+    inside = []
+    monkeypatch.setattr(trainer, "_train", lambda *a: inside.append(
+        (cudnn.deterministic, cudnn.benchmark)) or {"step": 0})
+    before = cudnn.deterministic, cudnn.benchmark
+    trainer.train(max_steps=1)
+    assert inside == [(True, False) if flag else before]
+    assert (cudnn.deterministic, cudnn.benchmark) == before
 
 
 def test_cli_has_its_own_flags_and_not_the_tpu_ones():

@@ -15,13 +15,24 @@ norms, ROADMAP Queue 3); that is the function the port computes.
 In train mode (2 frames, 2 iterations) each variant compiles one tcs_tpu
 program, the frame's forward and losses; its gradients are held, as
 ``tests/test_torch_grad_witness.py`` holds the default architecture's, against
-a float64 run of the port with every ReLU unit on the float64 run's side of
-its kink (``tcs_tpu_torch/utils/kinks.py``), which needs no JAX gradient.
-Measured on an 8-core x86 CPU (torch 2.13.0+cpu): flows ≤ 3.2e-4 px, losses
-≤ 2.1e-6 relative, pinned gradients ≤ 1.7e-5 of the float64 gradient's
-largest entry but for ``cnet.conv1.weight`` of batch-shared's frame 0,
-9.75e-4. That one is no L1 kink (the nearest residual is 1e-3 px) and not
-the init loss (1.0e-3 without it); what moves it is not found yet.
+a float64 run of the port with every ReLU unit, and every L1 term of the
+losses, on the float64 run's side of its kink (``tcs_tpu_torch/utils/
+kinks.py``, ``Kinks(l1=True)``), which needs no JAX gradient.
+Measured on an 8-core x86 CPU (torch 2.13.0+cpu, 2 threads): flows ≤ 3.2e-4
+px, losses ≤ 2.1e-6 relative, pinned gradients ≤ 1.6e-5 of the float64
+gradient's largest entry (batch-shared's frame 0 ``cnet.conv1.weight``,
+1.58e-5), held at 1e-4. With the ReLUs alone pinned that leaf read 9.75e-4:
+one residual of the gradient loss's L1 term, −1.2e-5 in float64 and 6.5e-6
+in fp32 (iteration 0, cell (5, 19), the y gradient), takes its gradient
+with the other sign; at 4 threads the fp32 run keeps float64's sign and the
+leaf reads 9.5e-6. ``python scripts/torch_grad_parity_seeds.py --cpu
+--variant batch-shared`` holds this configuration over eight seed pairs
+(frame 0, batch 1): pinned 7.7e-6 to 1.9e-5 (median 9.4e-6; the worst leaf
+with a live gradient 3.5e-5), free 2.0e-4 to 1.9e-2; with the L1 terms free,
+pair (70, 5) read 5.1e-3, a sequence-loss residual of flow_init at −3.9e-5
+px in float64 and 2.7e-5 in fp32. Batch norm's backward is not the cause:
+each of that pair's 33 batch norms, on its fp32 input and upstream
+gradient, is within 5e-7 of float64's.
 """
 
 import contextlib
@@ -58,7 +69,7 @@ FRAMES = 2
 TRAIN_KW = dict(train_iters=ITERS, batch_size=B, image_size=(H, W), frame_length=FRAMES,
                 num_steps=100)
 LOSS_RTOL = 1e-3  # train mode: each loss against tcs_tpu's, relative
-PINNED_RTOL = 1e-3  # of the float64 gradient's largest entry, kinks pinned
+PINNED_RTOL = 1e-4  # of the float64 gradient's largest entry, kinks pinned (measured 1.6e-5)
 NAMED_LEAVES = ("cnet.conv1.weight", "update_block.gru08.convzr.weight",
                 "disp_completor.conv_disp_stem.0.weight", "disp_refine.mask.2.weight")
 VARIANTS = {
@@ -203,7 +214,7 @@ def _port_frames(cfg, port_sd, batch, wide=False, replay=None):
     with contextlib.ExitStack() as stack:
         if wide:
             stack.enter_context(widened())
-        kinks = stack.enter_context(Kinks(replay))
+        kinks = stack.enter_context(Kinks(replay, l1=True))
         for t in range(FRAMES):
             frame = batch.frame(t)
             out = model(frame.image1, frame.image2, state, cam, frame.T, iters=ITERS,
