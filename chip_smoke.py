@@ -105,7 +105,16 @@ Phases, in order; any failure exits non-zero:
    where they differ, the library calls torch reports as nondeterministic
    named and the losses held to 1e-6), with the write and read rates; (c) the evaluation CLI on phase 8's TartanAir tree with
    ``--restore_ckpt`` on (b)'s ``save_params`` export, against the same
-   weights loaded directly.
+   weights loaded directly;
+14. measurement tools (``tcs_tpu_torch/utils/flops.py`` and the
+   ``scripts/torch_*`` benches): the model FLOPs of the small fp32 model at
+   64x96 (one carried frame at 2 iterations, one 2-frame training step),
+   counted on the card with the kernels and on the CPU with the plain
+   versions, equal to the integer; ``scripts/torch_mfu.py``'s inference
+   (phase 4's shapes) and SceneFlow step (phase 7's) in this process, each
+   share of the card's dense bf16 peak (over the call's time by CUDA events
+   and over its device time) held inside (0, 1.05]; and
+   ``scripts/torch_bench_components.py``'s stage table at 384x1280.
 
 The last line of standard output is the JSON device record. Run from the
 repository root: ``python chip_smoke.py``. ``python chip_smoke.py
@@ -179,17 +188,6 @@ FIXTURE_CONFIGS = {"fp32": dict(mixed_precision=False, corr_dtype="float32"), "b
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def hbm_bytes_per_s(name: str) -> float:
-    """Published HBM rate of the card (NVIDIA data sheets)."""
-    if "H100" in name and "PCIe" in name:
-        return 2.0e12
-    if "H100" in name:
-        return 3.35e12
-    if "H200" in name:
-        return 4.8e12
-    fail(f"no HBM rate on record for {name!r}")
 
 
 @contextlib.contextmanager
@@ -286,12 +284,17 @@ def launch_floor() -> dict:
     return rec
 
 
+def card_line() -> str:
+    """The first card's ``nvidia-smi --query-gpu=name,power.limit`` line."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     from tcs_tpu_torch.ops import _kernels
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -1386,15 +1389,16 @@ def decode_ms(path) -> tuple:
     return times["host"][0], times["plain"][0], times["host"][1], times["plain"][1]
 
 
-def loader_rate(ds, workers: int, batch: int) -> float:
-    """Samples/s of the loader alone, over the batches after the first."""
+def loader_rate(ds, workers: int, batch: int, batches: int = None) -> float:
+    """Samples/s of the loader alone, over ``batches`` batches (by default
+    ``LOADER_BATCHES[workers]``) after the first."""
     from tcs_tpu_torch.data.loader import SequenceLoader
 
     with SequenceLoader(ds, batch, num_workers=workers) as loader:
         it = loader.stream(1)
         next(it)
         t0 = time.perf_counter()
-        n = LOADER_BATCHES[workers]
+        n = batches or LOADER_BATCHES[workers]
         for _ in range(n):
             next(it)
         rate = n * batch / (time.perf_counter() - t0)
@@ -2039,14 +2043,20 @@ def _trained_frames(name, clips, occluded_right_view):
     return res
 
 
-def _load_script(name: str):
+def load_file(relpath: str, name: str):
+    """The module in the file ``relpath`` of this checkout, loaded by path
+    (not through ``sys.path``, which may put another tree's package first)."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath)
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _load_script(name: str):
+    return load_file(os.path.join("scripts", name + ".py"), name)
 
 
 def phase_trained_weights(smi: str) -> dict:
@@ -2478,6 +2488,50 @@ def phase_orbax(smi: str, eval_tree: dict = None) -> dict:
     return counts
 
 
+MFU_MAX = 1.05  # a share of the peak above this is a fault of the count or of the timed window
+
+
+def phase_measurement_tools(smi: str) -> dict:
+    """Phase 14; returns the launch counts of the phase."""
+    from tcs_tpu_torch import ModelConfig, TrainConfig
+    from tcs_tpu_torch.ops import _kernels
+    from tcs_tpu_torch.utils import flops
+
+    t_phase = time.perf_counter()
+    small = ModelConfig(mixed_precision=False, corr_dtype="float32")
+    step_cfg = TrainConfig(model=small, train_iters=SMALL_ITERS, batch_size=1,
+                           image_size=(SMALL_H, SMALL_W), frame_length=2)
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        with tf32_off():
+            frame = flops.inference_flops(small, SMALL_H, SMALL_W, SMALL_ITERS, device=dev)
+            step, _ = flops.train_step_flops(step_cfg, device=dev)
+        counts[dev] = dict(frame=frame.total, step=step.total, frame_ops=frame.by_op(),
+                           step_ops=step.by_op())
+        print(f"model FLOPs, fp32 config at {SMALL_H}x{SMALL_W}, on {dev}: one carried frame at "
+              f"{SMALL_ITERS} iterations {frame.total}, one 2-frame step {step.total} "
+              f"(forward {step.phase('forward')}, backward {step.phase('backward')})")
+    if counts["cuda"] != counts["cpu"]:
+        fail(f"the card's FLOP count differs from the CPU's: {counts}")
+    mfu = _load_script("torch_mfu")
+    components = _load_script("torch_bench_components")
+    _kernels.reset_launches()
+    # Shorter runs than the script's defaults: this phase keeps to about a minute.
+    for rec in (mfu.inference(smi, frames=8), mfu.train(smi, "sceneflow", steps=2)):
+        print(mfu.summary(rec))
+        print(f"  by op: { {k: round(v / 1e9, 3) for k, v in rec['by_op'].items()} } GFLOP; "
+              f"ms each {[round(t, 2) for t in rec['ms_each']]}")
+        for key in ("share_of_bf16_peak", "share_of_bf16_peak_in_device_time"):
+            if not 0 < rec[key] <= MFU_MAX:
+                fail(f"{rec['mode']}: {key} {rec[key]} is outside (0, {MFU_MAX}]")
+    components.stages(smi, MAIN_H, MAIN_W, MAIN_ITERS)
+    torch.cuda.synchronize()
+    launched = dict(_kernels.launches)
+    print(f"measurement tools: launches {launched}; phase 14 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2485,6 +2539,8 @@ def main() -> None:
     if sys.argv[1:] == ["--loader-cores"]:
         loader_cores_probe(smi)
         return
+    from tcs_tpu_torch.utils.flops import hbm_bytes_per_s
+
     rate = hbm_bytes_per_s(smi)
     launch_floor()
     rec = phase_kernels(rate)
@@ -2499,6 +2555,7 @@ def main() -> None:
     paths["jpeg_and_trace"] = phase_jpeg_and_trace(smi)
     paths["orbax_resume"] = phase_orbax(smi, eval_tree)
     eval_tree["tmp_dir"].cleanup()
+    paths["measurement_tools"] = phase_measurement_tools(smi)
     # `launches` sums the driven paths, each of which set the counts to 0
     # before it and read them after. The times and the bound are at the
     # shapes of the path that launches the kernel most, in the type it runs

@@ -73,8 +73,9 @@ def main() -> None:
                 "bwd" in entry and "Li4EE" in entry)) and ("Used" in line or "spill" in line):
             print(f"  {entry}: {line.strip()}")
     floor = cs.launch_floor()
-    records = cs.lookup_records(cs.hbm_bytes_per_s(card),
-                                torch.Generator(device="cpu").manual_seed(0))
+    # This checkout's peak table, whichever tree's kernels are timed.
+    rate = cs.load_file("tcs_tpu_torch/utils/flops.py", "flops").hbm_bytes_per_s(card)
+    records = cs.lookup_records(rate, torch.Generator(device="cpu").manual_seed(0))
     print(json.dumps({"tag": args.tag, "card": card, "launch_floor": floor,
                       "records": [dict(kernel=k, shape=s, dtype=d, **r)
                                   for (k, s, d), r in records.items()]}))

@@ -102,8 +102,9 @@ def main() -> None:
                 "Used" in line or "spill" in line):
             print(f"  {entry}: {line.strip()}")
     floor = cs.launch_floor()
-    records, inputs = cs.splat_records(cs.hbm_bytes_per_s(card),
-                                       torch.Generator(device="cpu").manual_seed(0),
+    # This checkout's peak table, whichever tree's kernels are timed.
+    rate = cs.load_file("tcs_tpu_torch/utils/flops.py", "flops").hbm_bytes_per_s(card)
+    records, inputs = cs.splat_records(rate, torch.Generator(device="cpu").manual_seed(0),
                                        exact=not args.atomic)
     launches, copy_ms = {}, {}
     for shape in ("inference", "training"):

@@ -183,8 +183,31 @@ class TCStereo(nn.Module):
                 return self._frame(image1, image2, state, cam, T, iters, True)
         return self._frame(image1, image2, state, cam, T, iters, False)
 
+    def iteration(self, disp, xs, net_list, inp_list, grad_list, pyramid):
+        """One GRU / dual-space refinement iteration with its radius lookup:
+        disp (B,h,w,1) and xs (the w column indices) → (net_list, disp_q,
+        refined, disp_grad, fused)."""
+        cfg = self.cfg
+        disp = disp.detach()
+        coords_x = (xs - disp[..., 0]).contiguous()
+        corr = corr_ops.lookup(pyramid, coords_x, cfg.corr_radius)
+        if cfg.slow_fast_gru:
+            net_list = self.update_block(net_list, inp_list, iter_fine=False,
+                                         iter_mid=False, update=False)
+            net_list = self.update_block(net_list, inp_list, iter_fine=False,
+                                         update=False)
+        net_list, delta_flow = self.update_block(net_list, inp_list, _c(corr),
+                                                 _c(-disp), self.dtype)
+        disp_q = disp - _h(delta_flow)
+        disp_grad_raw, _ = geometry.disp2disp_gradient_xy(disp_q.detach())
+        disp_grad, grad_ctx = self.disp_grad_refine(disp_grad_raw, disp_q, grad_list)
+        refined, fused = self.disp_refine(disp_grad, disp_q, net_list[0], grad_ctx)
+        net_list = (self.hiddenstate_update(net_list[0], (refined - disp_q).detach()),
+                    ) + tuple(net_list[1:])
+        return net_list, disp_q, refined, disp_grad, fused
+
     def _frame(self, image1, image2, state, cam, T, iters, test_mode):
-        cfg, dt = self.cfg, self.dtype
+        cfg = self.cfg
         B, H, W, _ = image1.shape
         f = cfg.downsample_factor
         # The carry is gradient-free where it is produced (new_state below)
@@ -262,22 +285,8 @@ class TCStereo(nn.Module):
         xs = torch.arange(w, dtype=torch.float32, device=disp.device)
         disp_q_seq, refined_seq, grads_seq, fused_seq = [], [], [], []
         for _ in range(iters):
-            disp = disp.detach()
-            coords_x = (xs - disp[..., 0]).contiguous()
-            corr = corr_ops.lookup(pyramid, coords_x, cfg.corr_radius)
-            if cfg.slow_fast_gru:
-                net_list = self.update_block(net_list, inp_list, iter_fine=False,
-                                             iter_mid=False, update=False)
-                net_list = self.update_block(net_list, inp_list, iter_fine=False,
-                                             update=False)
-            net_list, delta_flow = self.update_block(net_list, inp_list, _c(corr),
-                                                     _c(-disp), dt)
-            disp_q = disp - _h(delta_flow)
-            disp_grad_raw, _ = geometry.disp2disp_gradient_xy(disp_q.detach())
-            disp_grad, grad_ctx = self.disp_grad_refine(disp_grad_raw, disp_q, grad_list)
-            refined, fused = self.disp_refine(disp_grad, disp_q, net_list[0], grad_ctx)
-            net_list = (self.hiddenstate_update(net_list[0], (refined - disp_q).detach()),
-                        ) + tuple(net_list[1:])
+            net_list, disp_q, refined, disp_grad, fused = self.iteration(
+                disp, xs, net_list, inp_list, grad_list, pyramid)
             disp = refined
             if not test_mode:
                 disp_q_seq.append(disp_q)

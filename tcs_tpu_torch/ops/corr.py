@@ -22,6 +22,7 @@ from typing import Sequence, Tuple
 import torch
 
 from tcs_tpu_torch.ops import _kernels
+from tcs_tpu_torch.utils import flops
 
 MAX_LEVELS = 8
 MAX_RADIUS = 8
@@ -236,6 +237,10 @@ class _Lookup(torch.autograd.Function):
         return (None, None, *fn(g, coords_x, ctx.radius, ctx.widths, ctx.dtype))
 
 
+@flops.counted("corr_lookup",
+               lambda pyramid, coords_x, radius: 2 * coords_x.numel() * len(pyramid)
+               * (2 * radius + 1),
+               lambda pyramid, coords_x, radius: (pyramid,))
 def lookup(pyramid: Sequence[torch.Tensor], coords_x: torch.Tensor,
            radius: int) -> torch.Tensor:
     """:func:`lookup_plain`'s contract; the CUDA kernels on CUDA tensors.

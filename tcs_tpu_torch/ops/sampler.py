@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tcs_tpu_torch.utils import flops
+
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC → NCHW view (no copy for a 1-channel map)."""
@@ -194,6 +196,9 @@ def median_filter(x: torch.Tensor, k: int = 3) -> torch.Tensor:
     return to_nhwc(taps.reshape(B, C, H, W, k * k).median(dim=-1).values)
 
 
+@flops.counted("convex_upsample",
+               lambda field, mask_logits, factor: 9 * factor * factor * field.numel(),
+               lambda field, mask_logits, factor: (field, mask_logits))
 def convex_upsample_nchw(field: torch.Tensor, mask_logits: torch.Tensor,
                          factor: int) -> torch.Tensor:
     """(B, D, H, W) field, (B, 9·f·f, H, W) logits → (B, D, f·H, f·W).

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from tcs_tpu_torch.ops import _kernels
+from tcs_tpu_torch.utils import flops
 
 _EPS = 1e-7
 _TAPS = ((0, 0), (1, 0), (0, 1), (1, 1))
@@ -180,6 +181,8 @@ class _SplatSum(torch.autograd.Function):
         return fn(g, values, flow)
 
 
+@flops.counted("splat_sum", lambda values, flow: 4 * values.numel(),
+               lambda values, flow: (values, flow))
 def splat_sum(values: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """:func:`splat_sum_plain`'s contract; the CUDA kernels on CUDA tensors.
     Differentiable with respect to the values and the flow."""

@@ -5,6 +5,7 @@
   the CUDA activities, written as a Chrome trace under a directory that
   :func:`tcs_tpu_torch.utils.trace_summary.summarize_trace` reads; with a
   model, one range a submodule call, named by its path;
+- :func:`device_ms`: a call's device time from such a trace;
 - :class:`StepTimer`: a rolling wall-clock step timer;
 - :func:`device_memory_stats`: the caching allocator's bytes on a GPU.
 """
@@ -13,13 +14,14 @@ from __future__ import annotations
 
 import contextlib
 import os
+import shutil
 import socket
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from tcs_tpu_torch.utils.trace_summary import MODULE_RANGE
+from tcs_tpu_torch.utils.trace_summary import MODULE_RANGE, summarize_trace
 
 
 def _module_ranges(model: torch.nn.Module) -> list:
@@ -66,6 +68,30 @@ def trace(logdir: str, model: Optional[torch.nn.Module] = None):
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
         logdir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json.gz"))
+
+
+TIMED = "timed calls"  # device_ms's range
+
+
+def device_ms(fn, logdir: str, calls: int = 4) -> Tuple[float, float]:
+    """(ms, device events) a call of ``fn`` on the card: the kernels', copies'
+    and fills' time launched inside a range around ``calls`` calls, summed
+    from a :func:`trace` written under ``logdir`` (emptied first), after a
+    call outside the trace and one inside it but outside the range. Host
+    work and the device's waits between launches are not in it. A trace of
+    a hand kernel's launches alone has held only some of them: time such a
+    call with CUDA events instead."""
+    shutil.rmtree(logdir, ignore_errors=True)
+    fn()
+    with trace(logdir):
+        fn()
+        torch.cuda.synchronize()
+        with torch.autograd.profiler.record_function(MODULE_RANGE + TIMED):
+            for _ in range(calls):
+                fn()
+        torch.cuda.synchronize()
+    s = summarize_trace(logdir)
+    return s.by_module[TIMED] / calls, s.module_launches[TIMED] / calls
 
 
 class StepTimer:

@@ -72,6 +72,7 @@ class TraceSummary:
     by_category: collections.Counter = field(default_factory=collections.Counter)
     jit_ms: dict = field(default_factory=dict)  # top-level user ranges, ms by name
     launches: collections.Counter = field(default_factory=collections.Counter)  # events by op
+    module_launches: collections.Counter = field(default_factory=collections.Counter)  # by module
     category_launches: collections.Counter = field(default_factory=collections.Counter)
 
     @property
@@ -171,6 +172,7 @@ def summarize(events, strip_prefixes: tuple = ()) -> TraceSummary:
         s.by_category[cat or family(name)] += ms
         s.category_launches[cat or family(name)] += 1
         s.by_module[mod] += ms
+        s.module_launches[mod] += 1
         s.total_ms += ms
 
     for where, spans in users.items():  # top level: no user range on the thread holds it
