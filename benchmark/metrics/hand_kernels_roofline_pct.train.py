@@ -1,0 +1,7 @@
+"""The hand kernels' byte bound (lib/bounds.py) at 3.35 TB/s over their device time in the traced steps."""
+
+from benchmark.lib import readings
+
+
+def read(record):
+    return readings.hand_roofline_pct(record, "train")
