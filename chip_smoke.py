@@ -88,7 +88,7 @@ Phases, in order; any failure exits non-zero:
    the loader; (c) ``utils.profiling.trace`` with module ranges around 3
    frames of phase 4's main path and one step of phase 7's training step,
    ``trace_summary.summarize_trace`` of each (device time and events, the
-   tables by module, family and kernel, the share of no module), each hand
+   tables by module, family, kernel and stage span, the share of no module), each hand
    kernel's events in the trace held to its wrapper's launch count;
 13. ``tcs_tpu``'s Orbax checkpoints, read and written by the port alone
    (``utils/zstd.py``, ``utils/ocdbt.py``, ``utils/orbax_format.py``): (a)
@@ -113,8 +113,8 @@ Phases, in order; any failure exits non-zero:
    versions, equal to the integer; ``scripts/torch_mfu.py``'s inference
    (phase 4's shapes) and SceneFlow step (phase 7's) in this process, each
    share of the card's dense bf16 peak (over the call's time by CUDA events
-   and over its device time) held inside (0, 1.05]; and
-   ``scripts/torch_bench_components.py``'s stage table at 384x1280.
+   and over its device time) held inside (0, 1.05]. The stage table (the
+   device time launched in each ``tcs::`` span) is phase 12's, in place.
 
 The last line of standard output is the JSON device record. Run from the
 repository root: ``python chip_smoke.py``. ``python chip_smoke.py
@@ -2514,7 +2514,6 @@ def phase_measurement_tools(smi: str) -> dict:
     if counts["cuda"] != counts["cpu"]:
         fail(f"the card's FLOP count differs from the CPU's: {counts}")
     mfu = _load_script("torch_mfu")
-    components = _load_script("torch_bench_components")
     _kernels.reset_launches()
     # Shorter runs than the script's defaults: this phase keeps to about a minute.
     for rec in (mfu.inference(smi, frames=8), mfu.train(smi, "sceneflow", steps=2)):
@@ -2524,7 +2523,6 @@ def phase_measurement_tools(smi: str) -> dict:
         for key in ("share_of_bf16_peak", "share_of_bf16_peak_in_device_time"):
             if not 0 < rec[key] <= MFU_MAX:
                 fail(f"{rec['mode']}: {key} {rec[key]} is outside (0, {MFU_MAX}]")
-    components.stages(smi, MAIN_H, MAIN_W, MAIN_ITERS)
     torch.cuda.synchronize()
     launched = dict(_kernels.launches)
     print(f"measurement tools: launches {launched}; phase 14 took "

@@ -10,7 +10,7 @@ reports:
   module ranges) and ``trace_summary.summarize_trace``: device time per
   frame (kernels, copies and fills), the device's busy share of the frame
   (device time / wall time), device events per frame, and the device time by
-  family and by kernel;
+  family, by kernel and by the model's stage spans (``profiling.span``);
 - from a second traced pass with a range a module call (``trace(logdir,
   model)``, whose ranges cost host time, so neither its wall time nor its
   busy share is read): the device time by module (the innermost module

@@ -14,7 +14,7 @@ iterations) on a synthetic batch made from a seed, and reports:
   module ranges) and ``trace_summary.summarize_trace``: device time per
   step (kernels, copies and fills), the device's busy share of the step
   (device time / wall time), device events per step, and the device time by
-  family and by kernel;
+  family, by kernel and by the model's stage spans (``profiling.span``);
 - from a second traced pass with a range a module call (``trace(logdir,
   model)``, whose ranges cost host time, so neither its wall time nor its
   busy share is read): the device time by module (a backward kernel goes to

@@ -49,6 +49,7 @@ from tcs_tpu_torch.data.datasets import (
 )
 from tcs_tpu_torch.models.tc_stereo import CameraParams, TCStereo, TemporalState
 from tcs_tpu_torch.parallel import mesh
+from tcs_tpu_torch.utils import profiling
 from tcs_tpu_torch.utils.padder import InputPadder
 from tcs_tpu_torch.utils.video import MJPGWriter
 from tcs_tpu_torch.utils.visualization import pseudo_color_map
@@ -74,7 +75,12 @@ def make_eval_fn(model: TCStereo, iters: int):
 
 
 class TemporalEvaluator:
-    """Carries state and the step across the frames of a sequence stream."""
+    """Carries state and the step across the frames of a sequence stream.
+
+    A call's host-side input conversion, its copies to the device and the
+    padding are the span ``eval.inputs`` (:func:`profiling.span`); the
+    unpadding and the copy back to the host, where the host waits for the
+    device, ``eval.output``."""
 
     def __init__(self, model: TCStereo, cfg: ModelConfig, iters: int, device=None):
         self.device = device_lib.resolve(device)
@@ -94,21 +100,24 @@ class TemporalEvaluator:
                  K: np.ndarray, baseline, T: np.ndarray) -> np.ndarray:
         """image1/2: (H, W, 3) → disparity (H, W) numpy ≥ 0; or batched
         (D, H, W, 3) with K (D,3,3), baseline (D,), T (D,4,4) → (D, H, W)."""
-        batched = np.ndim(image1) == 4
-        if not batched:
-            image1, image2 = image1[None], image2[None]
-            K, T = np.asarray(K)[None], np.asarray(T)[None]
-            baseline = np.full((1,), baseline, np.float32)
-        D, H, W = image1.shape[:3]
-        padder = InputPadder((D, H, W, 3), divis_by=32)
-        (i1, i2), Kp = padder.pad(self._tensor(image1), self._tensor(image2),
-                                  K=self._tensor(K))
-        cam = CameraParams(K=Kp, baseline=self._tensor(baseline).reshape(D))
-        if self.state is None:
-            self.state = TemporalState.zeros(D, i1.shape[1], i1.shape[2], self.cfg,
-                                             device=self.device)
-        flow, self.state = self._step(i1, i2, self.state, cam, self._tensor(T))
-        out = (-padder.unpad(flow)[..., 0]).cpu().numpy()
+        with profiling.span("eval.inputs"):
+            batched = np.ndim(image1) == 4
+            if not batched:
+                image1, image2 = image1[None], image2[None]
+                K, T = np.asarray(K)[None], np.asarray(T)[None]
+                baseline = np.full((1,), baseline, np.float32)
+            D, H, W = image1.shape[:3]
+            padder = InputPadder((D, H, W, 3), divis_by=32)
+            (i1, i2), Kp = padder.pad(self._tensor(image1), self._tensor(image2),
+                                      K=self._tensor(K))
+            cam = CameraParams(K=Kp, baseline=self._tensor(baseline).reshape(D))
+            T = self._tensor(T)
+            if self.state is None:
+                self.state = TemporalState.zeros(D, i1.shape[1], i1.shape[2], self.cfg,
+                                                 device=self.device)
+        flow, self.state = self._step(i1, i2, self.state, cam, T)
+        with profiling.span("eval.output"):
+            out = (-padder.unpad(flow)[..., 0]).cpu().numpy()
         return out if batched else out[0]
 
 

@@ -24,6 +24,11 @@ of the JAX model is a ``.detach()`` at the same place; the temporal state is
 detached where it comes in and where it goes out, so one frame's backward
 never reaches another frame.
 
+Each call is a ``model.frame`` span (:func:`profiling.span`) around one
+span a stage: ``model.encode``, ``model.cost_volume``, ``model.argmax`` or
+``model.warp``, ``model.context``, ``model.completion``,
+``model.state_warp``, ``model.iter`` once an iteration, ``model.upsample``.
+
 Images are NHWC in [0, 255]; :class:`TemporalState` keeps the JAX package's
 layouts. ``state.valid`` is a host-side bool, so choosing the path needs no
 device synchronisation.
@@ -63,6 +68,7 @@ from tcs_tpu_torch.ops.sampler import (
 )
 from tcs_tpu_torch.ops.sampler import to_nchw as _c
 from tcs_tpu_torch.ops.sampler import to_nhwc as _h
+from tcs_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -178,10 +184,11 @@ class TCStereo(nn.Module):
         """
         if iters < 1:
             raise ValueError(f"iters={iters}: at least one refinement iteration")
-        if test_mode:
-            with torch.no_grad():
-                return self._frame(image1, image2, state, cam, T, iters, True)
-        return self._frame(image1, image2, state, cam, T, iters, False)
+        with profiling.span("model.frame"):
+            if test_mode:
+                with torch.no_grad():
+                    return self._frame(image1, image2, state, cam, T, iters, True)
+            return self._frame(image1, image2, state, cam, T, iters, False)
 
     def iteration(self, disp, xs, net_list, inp_list, grad_list, pyramid):
         """One GRU / dual-space refinement iteration with its radius lookup:
@@ -217,67 +224,71 @@ class TCStereo(nn.Module):
             net_list=tuple(n.detach() for n in state.net_list))
 
         # --- context + matching features ---
-        img = _c(2.0 * (torch.cat([image1, image2], dim=0) / 255.0) - 1.0)
-        if cfg.shared_backbone:
-            cnet_list, trunk = self.cnet(img, dual_inp=True)
-            fmap = _h(self.conv2(trunk)).float()
-        else:
-            cnet_list, _ = self.cnet(img[:B], dual_inp=False)
-            fmap = _h(self.fnet(img)).float()
-        fmap1, fmap2 = fmap[:B].contiguous(), fmap[B:]
+        with profiling.span("model.encode"):
+            img = _c(2.0 * (torch.cat([image1, image2], dim=0) / 255.0) - 1.0)
+            if cfg.shared_backbone:
+                cnet_list, trunk = self.cnet(img, dual_inp=True)
+                fmap = _h(self.conv2(trunk)).float()
+            else:
+                cnet_list, _ = self.cnet(img[:B], dual_inp=False)
+                fmap = _h(self.fnet(img)).float()
+            fmap1, fmap2 = fmap[:B].contiguous(), fmap[B:]
 
         # --- cost volume (fp32) and pyramid (corr_dtype) ---
-        raw_cv = corr_ops.build_cost_volume(fmap1, fmap2)
-        corr_dt = getattr(torch, cfg.corr_dtype)
-        pyramid = tuple(lvl.to(corr_dt).contiguous()
-                        for lvl in corr_ops.corr_pyramid(raw_cv, cfg.corr_levels))
-        cost_volume = None
-        if not (test_mode and state.valid):
-            cost_volume = corr_ops.masked_cost_volume(raw_cv)
+        with profiling.span("model.cost_volume"):
+            raw_cv = corr_ops.build_cost_volume(fmap1, fmap2)
+            corr_dt = getattr(torch, cfg.corr_dtype)
+            pyramid = tuple(lvl.to(corr_dt).contiguous()
+                            for lvl in corr_ops.corr_pyramid(raw_cv, cfg.corr_levels))
+            cost_volume = None
+            if not (test_mode and state.valid):
+                cost_volume = corr_ops.masked_cost_volume(raw_cv)
 
         # --- temporal initialisation ---
-        K_scale = geometry.scale_intrinsics(cam.K, cfg.scale_rate)
-        K_scale_inv = torch.linalg.inv(K_scale)
-        if state.valid:
-            rel = geometry.cal_relative_transformation(state.T_prev, T)
-            sparse_disp, warped_fmap1, sparse_mask = geometry.warp(
-                state.disp_q, state.fmap1, rel, K_scale, K_scale_inv, cam.baseline)
-            cost = torch.sum(corr_ops.l2_normalize(fmap1.detach())
-                             * corr_ops.l2_normalize(warped_fmap1),
-                             dim=-1, keepdim=True) * sparse_mask
-        else:
-            sparse_disp, cost, sparse_mask = corr_ops.argmax_disp(
-                cost_volume, margin=cfg.argmax_margin,
-                suppress_radius=cfg.argmax_suppress_radius)
+        with profiling.span("model.warp" if state.valid else "model.argmax"):
+            K_scale = geometry.scale_intrinsics(cam.K, cfg.scale_rate)
+            K_scale_inv = torch.linalg.inv(K_scale)
+            if state.valid:
+                rel = geometry.cal_relative_transformation(state.T_prev, T)
+                sparse_disp, warped_fmap1, sparse_mask = geometry.warp(
+                    state.disp_q, state.fmap1, rel, K_scale, K_scale_inv, cam.baseline)
+                cost = torch.sum(corr_ops.l2_normalize(fmap1.detach())
+                                 * corr_ops.l2_normalize(warped_fmap1),
+                                 dim=-1, keepdim=True) * sparse_mask
+            else:
+                sparse_disp, cost, sparse_mask = corr_ops.argmax_disp(
+                    cost_volume, margin=cfg.argmax_margin,
+                    suppress_radius=cfg.argmax_suppress_radius)
 
         # --- context projections ---
-        inp_raw = [F.relu(x[1]) for x in cnet_list]
-        grad_list = tuple(conv(x) for conv, x in zip(self.context_zqr_convs_grad, inp_raw))
-        inp_list = tuple(torch.chunk(conv(x), 3, dim=1)
-                         for conv, x in zip(self.context_zqr_convs, inp_raw))
-        net_raw = [x[0] for x in cnet_list]
+        with profiling.span("model.context"):
+            inp_raw = [F.relu(x[1]) for x in cnet_list]
+            grad_list = tuple(conv(x) for conv, x in zip(self.context_zqr_convs_grad, inp_raw))
+            inp_list = tuple(torch.chunk(conv(x), 3, dim=1)
+                             for conv, x in zip(self.context_zqr_convs, inp_raw))
+            net_raw = [x[0] for x in cnet_list]
 
         # --- disparity completion (the cost is an input, not a path for
         # gradients: the init loss trains the cost volume) ---
-        disp_init, disp_mono, _, net_list = self.disp_completor(
-            sparse_disp, cost.detach(), sparse_mask, net_raw)
+        with profiling.span("model.completion"):
+            disp_init, disp_mono, _, net_list = self.disp_completor(
+                sparse_disp, cost.detach(), sparse_mask, net_raw)
 
-        # --- hidden-state temporal warp ---
-        if state.valid:
-            grid = geometry.get_backward_grid(
-                disp_init.detach(), geometry.cal_relative_transformation(T, state.T_prev),
-                K_scale, K_scale_inv, cam.baseline)
-            warped = []
-            for net in state.net_list:
-                warped.append(_c(bilinear_sampler(net.float(), grid)))
-                grid = 0.5 * resize_bilinear(grid, (grid.shape[1] // 2,
-                                                    grid.shape[2] // 2))
-        else:
-            warped = [torch.zeros_like(n, dtype=torch.float32) for n in net_list]
-
-        # --- hidden-state fusion ---
-        net_list = tuple(fuse(torch.tanh(net), wnet) for fuse, net, wnet in
-                         zip(self.previous_current_hideen_fuse, net_list, warped))
+        # --- hidden-state temporal warp and fusion ---
+        with profiling.span("model.state_warp"):
+            if state.valid:
+                grid = geometry.get_backward_grid(
+                    disp_init.detach(), geometry.cal_relative_transformation(T, state.T_prev),
+                    K_scale, K_scale_inv, cam.baseline)
+                warped = []
+                for net in state.net_list:
+                    warped.append(_c(bilinear_sampler(net.float(), grid)))
+                    grid = 0.5 * resize_bilinear(grid, (grid.shape[1] // 2,
+                                                        grid.shape[2] // 2))
+            else:
+                warped = [torch.zeros_like(n, dtype=torch.float32) for n in net_list]
+            net_list = tuple(fuse(torch.tanh(net), wnet) for fuse, net, wnet in
+                             zip(self.previous_current_hideen_fuse, net_list, warped))
 
         # --- iterative refinement ---
         disp = disp_init
@@ -285,8 +296,9 @@ class TCStereo(nn.Module):
         xs = torch.arange(w, dtype=torch.float32, device=disp.device)
         disp_q_seq, refined_seq, grads_seq, fused_seq = [], [], [], []
         for _ in range(iters):
-            net_list, disp_q, refined, disp_grad, fused = self.iteration(
-                disp, xs, net_list, inp_list, grad_list, pyramid)
+            with profiling.span("model.iter"):
+                net_list, disp_q, refined, disp_grad, fused = self.iteration(
+                    disp, xs, net_list, inp_list, grad_list, pyramid)
             disp = refined
             if not test_mode:
                 disp_q_seq.append(disp_q)
@@ -301,33 +313,34 @@ class TCStereo(nn.Module):
             T_prev=T,
             valid=True,
         )
-        if test_mode:
-            # Mask head and convex upsampling on the last iteration only.
-            up_mask = self.disp_refine.mask(fused)
-            flow = _h(convex_upsample_nchw(_c(-disp), up_mask, f)).clamp(max=0.0)
-            return TCStereoOutput(flow=flow, new_state=new_state)
+        with profiling.span("model.upsample"):
+            if test_mode:
+                # Mask head and convex upsampling on the last iteration only.
+                up_mask = self.disp_refine.mask(fused)
+                flow = _h(convex_upsample_nchw(_c(-disp), up_mask, f)).clamp(max=0.0)
+                return TCStereoOutput(flow=flow, new_state=new_state)
 
-        # Train: the iteration axis folds into the batch, so the mask head and
-        # the upsampling run once over all iterations (per-pixel operations,
-        # so the numbers are those of a per-iteration application).
-        disp_q_seq, refined_seq = torch.stack(disp_q_seq), torch.stack(refined_seq)
+            # Train: the iteration axis folds into the batch, so the mask head and
+            # the upsampling run once over all iterations (per-pixel operations,
+            # so the numbers are those of a per-iteration application).
+            disp_q_seq, refined_seq = torch.stack(disp_q_seq), torch.stack(refined_seq)
 
-        def fold(x):  # (iters, B, h, w, 1) → (iters·B, 1, h, w)
-            return _c(x.reshape(iters * B, h, w, 1))
+            def fold(x):  # (iters, B, h, w, 1) → (iters·B, 1, h, w)
+                return _c(x.reshape(iters * B, h, w, 1))
 
-        def unfold(x):  # (iters·B, 1, H, W) → (iters, B, H, W, 1)
-            return _h(x).reshape(iters, B, H, W, 1)
+            def unfold(x):  # (iters·B, 1, H, W) → (iters, B, H, W, 1)
+                return _h(x).reshape(iters, B, H, W, 1)
 
-        up_mask = self.disp_refine.mask(torch.cat(fused_seq, dim=0))
-        flows_up = unfold(convex_upsample_nchw(fold(-disp_q_seq), up_mask.detach(), f))
-        flow_refine_up = unfold(convex_upsample_nchw(fold(-refined_seq), up_mask, f))
-        return TCStereoOutput(
-            flow=flow_refine_up[-1].clamp(max=0.0),
-            new_state=new_state,
-            flow_predictions=(flows_up, flow_refine_up),
-            flow_q_predictions=(-disp_q_seq, -refined_seq),
-            disp_grad_q_predictions=torch.stack(grads_seq),
-            flow_init=-float(f) * resize_bilinear(disp_init, (H, W)),
-            flow_mono=-float(f) * resize_bilinear(disp_mono, (H, W)),
-            cost_volume=cost_volume,
-        )
+            up_mask = self.disp_refine.mask(torch.cat(fused_seq, dim=0))
+            flows_up = unfold(convex_upsample_nchw(fold(-disp_q_seq), up_mask.detach(), f))
+            flow_refine_up = unfold(convex_upsample_nchw(fold(-refined_seq), up_mask, f))
+            return TCStereoOutput(
+                flow=flow_refine_up[-1].clamp(max=0.0),
+                new_state=new_state,
+                flow_predictions=(flows_up, flow_refine_up),
+                flow_q_predictions=(-disp_q_seq, -refined_seq),
+                disp_grad_q_predictions=torch.stack(grads_seq),
+                flow_init=-float(f) * resize_bilinear(disp_init, (H, W)),
+                flow_mono=-float(f) * resize_bilinear(disp_mono, (H, W)),
+                cost_volume=cost_volume,
+            )

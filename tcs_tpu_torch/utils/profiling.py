@@ -5,6 +5,8 @@
   the CUDA activities, written as a Chrome trace under a directory that
   :func:`tcs_tpu_torch.utils.trace_summary.summarize_trace` reads; with a
   model, one range a submodule call, named by its path;
+- :func:`span`: a named stage of the program, a range in such a trace and
+  nothing when no profiler records;
 - :func:`device_ms`: a call's device time from such a trace;
 - :class:`StepTimer`: a rolling wall-clock step timer;
 - :func:`device_memory_stats`: the caching allocator's bytes on a GPU.
@@ -20,8 +22,21 @@ import time
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-from tcs_tpu_torch.utils.trace_summary import MODULE_RANGE, summarize_trace
+from tcs_tpu_torch.utils.trace_summary import MODULE_RANGE, STAGE_RANGE, summarize_trace
+
+_IDLE = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range named ``tcs::<name>`` around the block while a profiler
+    records, on the trace's clock, so that the summary attributes each
+    launch to its stage; otherwise one shared no-op context, so that a span
+    costs the program one flag read."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _IDLE
+    return _autograd_profiler.record_function(STAGE_RANGE + name)
 
 
 def _module_ranges(model: torch.nn.Module) -> list:

@@ -15,11 +15,15 @@ and from that call's thread and time:
   autograd's ``evaluate_function`` of some node) goes to the module of the
   forward op with that node's ``Sequence number``, which is how the trace
   links the two; where no forward op in a module range has it, to
-  ``backward``. A launch outside both is :data:`NO_MODULE`.
+  ``backward``. A launch outside both is :data:`NO_MODULE`;
+- ``by_stage``: the same for the innermost stage range
+  (:func:`profiling.span`, named ``tcs::<stage>``) around the launching
+  call, backward launches by the same sequence number; a launch outside
+  every stage is :data:`NO_STAGE`.
 
 ``jit_ms`` keeps ``tcs_tpu``'s field name; here it is the time of the
-top-level user ranges (``record_function`` blocks other than module ranges
-that no other user range on their thread encloses), by name.
+top-level user ranges (``record_function`` blocks other than module and
+stage ranges that no other user range on their thread encloses), by name.
 
 Shared by ``scripts/profile_torch_main_path.py``,
 ``scripts/profile_torch_train_step.py`` and ``chip_smoke.py``.
@@ -36,7 +40,9 @@ import sys
 from dataclasses import dataclass, field
 
 MODULE_RANGE = "module::"  # the prefix of the ranges profiling.trace pushes
+STAGE_RANGE = "tcs::"  # the prefix of profiling.span's ranges
 NO_MODULE = "(no module)"
+NO_STAGE = "(no stage)"
 BACKWARD = "backward"
 
 # Kernel families by substring of the lower-cased name, first match wins.
@@ -73,6 +79,8 @@ class TraceSummary:
     jit_ms: dict = field(default_factory=dict)  # top-level user ranges, ms by name
     launches: collections.Counter = field(default_factory=collections.Counter)  # events by op
     module_launches: collections.Counter = field(default_factory=collections.Counter)  # by module
+    by_stage: collections.Counter = field(default_factory=collections.Counter)
+    stage_launches: collections.Counter = field(default_factory=collections.Counter)
     category_launches: collections.Counter = field(default_factory=collections.Counter)
 
     @property
@@ -118,8 +126,9 @@ def summarize(events, strip_prefixes: tuple = ()) -> TraceSummary:
     """The tables of one trace's ``traceEvents``."""
     s = TraceSummary()
     complete = [e for e in events if e.get("ph") == "X" and "ts" in e]
-    # by (pid, tid): module ranges, backward nodes, forward ops, user ranges
-    ranges, evaluates, forward_ops, users = (collections.defaultdict(list) for _ in range(4))
+    # by (pid, tid): module ranges, stage ranges, backward nodes, forward ops, user ranges
+    ranges, stages, evaluates, forward_ops, users = (collections.defaultdict(list)
+                                                     for _ in range(5))
     launch_at = {}  # correlation id → (thread, time) of the launching call
     for e in complete:
         cat, name, args = (e.get("cat") or "").lower(), e.get("name", "?"), e.get("args") or {}
@@ -130,6 +139,8 @@ def summarize(events, strip_prefixes: tuple = ()) -> TraceSummary:
                 for p in strip_prefixes:
                     path = path.replace(p, "")
                 ranges[where].append((*_span(e), path))
+            elif name.startswith(STAGE_RANGE):
+                stages[where].append((*_span(e), name[len(STAGE_RANGE):]))
             else:
                 users[where].append((*_span(e), name))
         elif cat in ("cpu_op", "operator") and "Sequence number" in args:
@@ -140,13 +151,15 @@ def summarize(events, strip_prefixes: tuple = ()) -> TraceSummary:
         elif cat in _LAUNCH and "correlation" in args:
             launch_at[args["correlation"]] = (where, float(e["ts"]))
 
-    # A forward op's module; a sequence number names the op that made an
-    # autograd node, and the nested ops it called share it.
-    seq_module = {}
+    # A forward op's module and stage; a sequence number names the op that
+    # made an autograd node, and the nested ops it called share it.
+    seq_module, seq_stage = {}, {}
     for where, ops in forward_ops.items():
-        for (_, seq), mod in zip(ops, _innermost(ranges[where], [t for t, _ in ops])):
-            if mod is not None:
-                seq_module.setdefault(seq, mod)
+        times = [t for t, _ in ops]
+        for table, intervals in ((seq_module, ranges), (seq_stage, stages)):
+            for (_, seq), owner in zip(ops, _innermost(intervals[where], times)):
+                if owner is not None:
+                    table.setdefault(seq, owner)
 
     device = [e for e in complete if (e.get("cat") or "").lower() in _DEVICE]
     queries = collections.defaultdict(list)  # thread → [(launch time, device event index)]
@@ -154,17 +167,18 @@ def summarize(events, strip_prefixes: tuple = ()) -> TraceSummary:
         at = launch_at.get((e.get("args") or {}).get("correlation"))
         if at is not None:
             queries[at[0]].append((at[1], k))
-    module_of = [NO_MODULE] * len(device)
+    module_of, stage_of = [NO_MODULE] * len(device), [NO_STAGE] * len(device)
     for where, q in queries.items():
         times = [t for t, _ in q]
-        mods = _innermost(ranges[where], times)
         seqs = _innermost(evaluates[where], times)
-        for (_, k), mod, seq in zip(q, mods, seqs):
-            if mod is not None:
-                module_of[k] = mod
-            elif seq is not None:
-                module_of[k] = seq_module.get(seq, BACKWARD)
-    for e, mod in zip(device, module_of):
+        for out, intervals, by_seq in ((module_of, ranges, seq_module),
+                                       (stage_of, stages, seq_stage)):
+            for (_, k), owner, seq in zip(q, _innermost(intervals[where], times), seqs):
+                if owner is not None:
+                    out[k] = owner
+                elif seq is not None:
+                    out[k] = by_seq.get(seq, BACKWARD)
+    for e, mod, stage in zip(device, module_of, stage_of):
         name, cat = e.get("name", "?"), _DEVICE[(e.get("cat") or "").lower()]
         ms = float(e.get("dur", 0.0)) / 1000.0
         s.by_op[name] += ms
@@ -173,6 +187,8 @@ def summarize(events, strip_prefixes: tuple = ()) -> TraceSummary:
         s.category_launches[cat or family(name)] += 1
         s.by_module[mod] += ms
         s.module_launches[mod] += 1
+        s.by_stage[stage] += ms
+        s.stage_launches[stage] += 1
         s.total_ms += ms
 
     for where, spans in users.items():  # top level: no user range on the thread holds it
@@ -208,3 +224,7 @@ def print_summary(s: TraceSummary, steps: int, top: int = 40, file=None):
         print(f"\n{'ms/step':>9}  {'%':>5}  {title}", file=file)
         for name, ms in counter.most_common(n):
             print(f"{ms / steps:9.3f}  {100 * ms / total:5.1f}  {name[:110]}", file=file)
+    print(f"\n{'ms/step':>9}  {'%':>5}  {'events/step':>11}  stage", file=file)
+    for name, ms in s.by_stage.most_common():
+        print(f"{ms / steps:9.3f}  {100 * ms / total:5.1f}  "
+              f"{s.stage_launches[name] / steps:11.1f}  {name}", file=file)

@@ -3,9 +3,10 @@
 helpers (``geometry.py``, ``utils/debug.py``) against ``tcs_tpu``'s.
 
 The summary is held exactly on a hand-built trace shaped as kineto writes
-one on a GPU (this host has none); a real CPU trace of a small forward
-shows the capture, the module ranges and that no CPU op counts as device
-time. No JAX program is compiled here.
+one on a GPU (this host has none), with module ranges and with stage spans;
+real CPU traces of a small forward and of a small evaluator's two frames
+show the capture, the module ranges, the stage spans and that no CPU op
+counts as device time. No JAX program is compiled here.
 """
 
 import gzip
@@ -21,10 +22,12 @@ import torch
 from tcs_tpu import geometry as jax_geometry
 from tcs_tpu.utils import debug as jax_debug
 from tcs_tpu_torch import ModelConfig, geometry
+from tcs_tpu_torch.evaluate import TemporalEvaluator
 from tcs_tpu_torch.models import CameraParams, TCStereo, TemporalState
 from tcs_tpu_torch.utils import debug, profiling, trace_summary
-from tcs_tpu_torch.utils.trace_summary import (BACKWARD, NO_MODULE, latest_trace_path,
-                                               print_summary, summarize_trace)
+from tcs_tpu_torch.utils.trace_summary import (BACKWARD, NO_MODULE, NO_STAGE, STAGE_RANGE,
+                                               latest_trace_path, print_summary,
+                                               summarize, summarize_trace)
 
 torch.set_num_threads(2)
 
@@ -109,6 +112,58 @@ def test_summary_of_a_kineto_shaped_trace_is_exact(tmp_path, capsys):
     assert "conv" in summarize_trace(str(tmp_path), strip_prefixes=("enc.",)).by_module
 
 
+# The same trace with stage spans on the forward thread: the conv op (sequence
+# number 7) and the first launch in model.encode, the second launch in an
+# iteration, the copy's launch in model.frame alone; the backward launch of
+# sequence number 7 goes to model.encode through its forward op.
+STAGED = SYNTHETIC + [
+    _x("user_annotation", STAGE_RANGE + "model.frame", 5, 515),
+    _x("user_annotation", STAGE_RANGE + "model.encode", 20, 100),
+    _x("user_annotation", STAGE_RANGE + "model.iter", 140, 60),
+]
+
+
+def test_stage_summary_of_a_kineto_shaped_trace_is_exact(capsys):
+    """Each device event goes to the innermost stage span around its launch,
+    a backward launch to its forward op's stage, the rest to no stage; the
+    module tables and the top-level user ranges are those without spans."""
+    s, plain = summarize(STAGED), summarize(SYNTHETIC)
+    assert dict(s.by_stage) == pytest.approx(
+        {"model.encode": 0.09, "model.iter": 0.02, "model.frame": 0.01, BACKWARD: 0.008,
+         NO_STAGE: 0.01}, abs=1e-15)
+    assert dict(s.stage_launches) == {"model.encode": 2, "model.iter": 1, "model.frame": 1,
+                                      BACKWARD: 1, NO_STAGE: 3}
+    assert dict(plain.by_stage) == pytest.approx({NO_STAGE: 0.09, BACKWARD: 0.048}, abs=1e-15)
+    assert (s.by_module, s.module_launches, s.jit_ms) == (
+        plain.by_module, plain.module_launches, plain.jit_ms)
+    print_summary(s, steps=2)
+    out = capsys.readouterr().out
+    assert "    0.045   65.2          1.0  model.encode\n" in out
+    assert "    0.004    5.8          0.5  backward\n" in out
+
+
+def test_a_span_without_a_profiler_is_the_shared_no_op(monkeypatch):
+    """No profiler records: ``span`` constructs no ``record_function`` and
+    returns one shared object; under a profiler, a range named ``tcs::``."""
+    built = []
+    real = torch.autograd.profiler.record_function
+
+    def counting(name, *args):
+        built.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", counting)
+    idle = profiling.span("eval.inputs")
+    assert profiling.span("model.iter") is idle and not built
+    with idle:
+        pass
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("model.iter") as rf:
+            pass
+    assert built == [STAGE_RANGE + "model.iter"] and rf is not idle
+    assert profiling.span("model.iter") is idle
+
+
 def _tiny(seed=0):
     cfg = ModelConfig(mixed_precision=False, corr_dtype="float32")
     model = TCStereo(cfg, device="cpu", seed=seed)
@@ -152,6 +207,48 @@ def test_cpu_trace_of_a_forward(tmp_path):
     s = summarize_trace(str(tmp_path / "new"))
     assert s.total_ms == 0.0 and s.events == 0 and not s.by_op
     assert set(s.jit_ms) == {"frame"} and s.jit_ms["frame"] > 0
+
+
+MODEL_STAGES = ("model.encode", "model.cost_volume", "model.context", "model.completion",
+                 "model.state_warp", "model.upsample")
+
+
+def test_cpu_trace_of_a_bootstrap_and_a_carried_frame_holds_every_stage(tmp_path):
+    """The evaluator's two calls at 2 iterations, a bootstrap and a carried
+    frame, traced on the CPU: each call holds its input and output spans
+    and one ``model.frame`` around every model span, with ``model.argmax``
+    on the bootstrap, ``model.warp`` on the carried frame and one
+    ``model.iter`` an iteration; the disparities are those without tracing."""
+    cfg = ModelConfig(mixed_precision=False, corr_dtype="float32")
+    rng = np.random.default_rng(0)
+    images = rng.uniform(0, 255, (2, 2, 64, 96, 3)).astype(np.float32)
+    K = np.array([[80.0, 0, 48], [0, 80, 32], [0, 0, 1]], np.float32)
+    poses = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    poses[1, 0, 3] = 0.05
+    ev = TemporalEvaluator(TCStereo(cfg, device="cpu"), cfg, iters=2, device="cpu")
+
+    def two_frames():
+        ev.reset()
+        return [ev(images[k, 0], images[k, 1], K, 0.5, poses[k]) for k in range(2)]
+
+    plain = two_frames()
+    with profiling.trace(str(tmp_path)):
+        traced = two_frames()
+    assert all(np.array_equal(a, b) for a, b in zip(plain, traced))
+    with gzip.open(latest_trace_path(str(tmp_path)), "rt") as f:
+        spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"][len(STAGE_RANGE):])
+                       for e in json.load(f)["traceEvents"]
+                       if e.get("ph") == "X" and e["name"].startswith(STAGE_RANGE))
+    frames = [sp for sp in spans if sp[2] == "model.frame"]
+    assert len(frames) == 2
+    calls = [sp for sp in spans if sp[2] == "eval.inputs"]
+    assert len(calls) == 2 and len([sp for sp in spans if sp[2] == "eval.output"]) == 2
+    for (s0, e0, _), first_of_call, init in zip(frames, calls, ("model.argmax", "model.warp")):
+        inside = [name for s, e, name in spans if s0 < s and e <= e0]
+        assert sorted(inside) == sorted(MODEL_STAGES + (init,) + ("model.iter",) * 2)
+        assert first_of_call[1] <= s0
+    model_spans = [sp for sp in spans if sp[2].startswith("model.") and sp[2] != "model.frame"]
+    assert all(any(s0 <= s and e <= e0 for s0, e0, _ in frames) for s, e, _ in model_spans)
 
 
 def test_nan_checks_fail_at_the_first_non_finite_result():
