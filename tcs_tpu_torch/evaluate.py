@@ -77,10 +77,16 @@ def make_eval_fn(model: TCStereo, iters: int):
 class TemporalEvaluator:
     """Carries state and the step across the frames of a sequence stream.
 
-    A call's host-side input conversion, its copies to the device and the
-    padding are the span ``eval.inputs`` (:func:`profiling.span`); the
-    unpadding and the copy back to the host, where the host waits for the
-    device, ``eval.output``."""
+    Frames go to the device in the dtype they come in and are cast to fp32
+    there: uint8 frames, as decoders give them, move a quarter of the bytes
+    of fp32 ones and are not converted on the host. The cast is exact for
+    integer frames and rounds as the host's would for float64 ones, so the
+    results are those of fp32 frames.
+
+    A call's input conversion, its copies to the device and the padding are
+    the span ``eval.inputs`` (:func:`profiling.span`); the unpadding and the
+    copy back to the host, where the host waits for the device,
+    ``eval.output``."""
 
     def __init__(self, model: TCStereo, cfg: ModelConfig, iters: int, device=None):
         self.device = device_lib.resolve(device)
@@ -96,6 +102,15 @@ class TemporalEvaluator:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
+    def _device_images(self, image1: np.ndarray, image2: np.ndarray):
+        """(D, H, W, 3) frames → their fp32 tensors on the device."""
+        # torch gathers a frame of any layout on its threads; numpy took 50-70
+        # ms to make such a frame contiguous on the card's host (PERF.md).
+        # Only negative strides, which torch refuses, are copied by numpy.
+        return tuple(torch.from_numpy(x if min(x.strides) >= 0 else x.copy())
+                     .to(self.device).float()
+                     for x in (np.asarray(image1), np.asarray(image2)))
+
     def __call__(self, image1: np.ndarray, image2: np.ndarray,
                  K: np.ndarray, baseline, T: np.ndarray) -> np.ndarray:
         """image1/2: (H, W, 3) → disparity (H, W) numpy ≥ 0; or batched
@@ -108,7 +123,7 @@ class TemporalEvaluator:
                 baseline = np.full((1,), baseline, np.float32)
             D, H, W = image1.shape[:3]
             padder = InputPadder((D, H, W, 3), divis_by=32)
-            (i1, i2), Kp = padder.pad(self._tensor(image1), self._tensor(image2),
+            (i1, i2), Kp = padder.pad(*self._device_images(image1, image2),
                                       K=self._tensor(K))
             cam = CameraParams(K=Kp, baseline=self._tensor(baseline).reshape(D))
             T = self._tensor(T)
@@ -231,8 +246,8 @@ def _evaluate_sequences(ev: TemporalEvaluator, seqs: List[Dict],
         n = min(len(s["img1s"]), max_frames if max_frames else 10**9)
         ev.reset()
         for j in range(n):
-            disp = ev(frame_utils.read_image(s["img1s"][j]).astype(np.float32),
-                      frame_utils.read_image(s["img2s"][j]).astype(np.float32),
+            disp = ev(frame_utils.read_image(s["img1s"][j]),
+                      frame_utils.read_image(s["img2s"][j]),
                       s["K"], s["baseline"], np.asarray(s["poses"][j], np.float32))
             rows.append(((si, j), on_frame(si, j, disp, s["read_gt"](s["disps"][j]))))
     return [r for _, r in sorted(_gathered(rows, sharded), key=lambda x: x[0])]
@@ -353,8 +368,8 @@ def submit_kitti(model: TCStereo, cfg: ModelConfig, iters: int = 5,
         video = None
         try:
             for frame_ind, (p1, p2, T) in enumerate(zip(img1s, img2s, poses)):
-                i1 = frame_utils.read_image(p1).astype(np.float32)
-                i2 = frame_utils.read_image(p2).astype(np.float32)
+                i1 = frame_utils.read_image(p1)
+                i2 = frame_utils.read_image(p2)
                 t0 = time.time()
                 disp = ev(i1, i2, K, 0.54, T)  # numpy: the device has finished
                 dt = time.time() - t0

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card, and
-the loader's pinned batches on their way to it.
+the loader's pinned batches and the evaluator's uint8 frames on their way to
+it.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for the card and
 skips without one. On a GPU machine, where JAX is missing and
@@ -367,3 +368,41 @@ def test_loader_stacks_pinned_batches_that_reach_the_card_unchanged(cuda_device,
             on_card = SequenceBatch.from_loader(b, cuda_device)
             for k in _Clips.shapes:
                 assert torch.equal(getattr(on_card, k).cpu(), torch.from_numpy(a[k]))
+
+
+KITTI_STREAMS, KITTI_H, KITTI_W = 8, 375, 1242
+
+
+def test_evaluator_casts_uint8_frames_on_the_card_bit_for_bit_at_kitti_size(cuda_device):
+    """Three frames of 8 KITTI streams in the default (bf16) config: uint8
+    frames cast on the card give the disparities and states that fp32 frames
+    give, bit for bit."""
+    from tcs_tpu_torch import ModelConfig
+    from tcs_tpu_torch.device import deterministic
+    from tcs_tpu_torch.evaluate import TemporalEvaluator
+    from tcs_tpu_torch.models import TCStereo
+
+    cfg = ModelConfig()
+    model = TCStereo(cfg, device=cuda_device, seed=4)
+    rng = np.random.default_rng(8)
+    frames = rng.integers(0, 256, (3, 2, KITTI_STREAMS, KITTI_H, KITTI_W, 3), dtype=np.uint8)
+    K = np.tile(np.array([[721.5377, 0, 609.5593], [0, 721.5377, 172.854], [0, 0, 1]],
+                         np.float32), (KITTI_STREAMS, 1, 1))
+    baseline = np.full((KITTI_STREAMS,), 0.54, np.float32)
+    runs = {}
+    with deterministic():
+        for dtype in (np.uint8, np.float32):
+            ev = TemporalEvaluator(model, cfg, iters=5, device=cuda_device)
+            runs[dtype] = []
+            for k in range(3):
+                T = np.tile(np.eye(4, dtype=np.float32), (KITTI_STREAMS, 1, 1))
+                T[:, 2, 3] = -0.8 * k
+                i1, i2 = frames[k].astype(dtype)
+                disp = ev(i1, i2, K, baseline, T)
+                s = ev.state
+                state = (s.disp_q, *s.net_list, s.fmap1, s.T_prev)
+                runs[dtype].append((disp, [t.cpu() for t in state]))
+    for (disp, state), (ref_disp, ref_state) in zip(runs[np.uint8], runs[np.float32]):
+        assert disp.shape == (KITTI_STREAMS, KITTI_H, KITTI_W)
+        np.testing.assert_array_equal(disp, ref_disp)
+        assert all(torch.equal(a, b) for a, b in zip(state, ref_state))
